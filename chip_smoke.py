@@ -64,25 +64,34 @@ PKG = "snark_challenge_prover_tpu_torch"
 # multiply-adds per SM per clock * 132 SMs * 1.98 GHz boost clock.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_IMAD_PER_S = 64 * 132 * 1.98e9
-MADS_PER_MONT_MUL = 2 * 24 * 24  # a*b and m*p, 24 x 24 words each
+# A Montgomery product (CIOS, 24 words) takes 24 * 24 wide partial products
+# for a*b and as many for m*p; a 32x32 -> 64-bit partial product is two 32-bit
+# multiply-adds on this card (mad.lo and mad.hi, or one IMAD.WIDE issued at
+# half rate).  The 24 m's (m = t0 * n0 mod 2^32) need only the low word, one
+# multiply each, so a product is 2 * 2 * 24^2 + 24.
+MADS_PER_MONT_MUL = 2 * 2 * 24 * 24 + 24
 
 # kernel name -> (source, TPU kernel replaced, Montgomery products per
-# element, 96-byte values read + written per element)
+# element, 96-byte values read + written per element).  Both group laws
+# count the products the function needs with the curves' own constants: a is
+# a small integer on every curve, so its multiplications are additions.  An
+# addition takes 12 extension products and two monomials c u^s for 3b (1, 2
+# or 3 base products); a doubling 11 extension products (its a ZZ is free).
 KERNELS = {
     "mont_mul": (f"{PKG}/csrc/mont_mul.cu",
                  "snark_challenge_prover_tpu/ops/pallas_field.py:141", 1, 3),
     "ec_add_fp": (f"{PKG}/csrc/ec_add.cu",
-                  "snark_challenge_prover_tpu/ops/pallas_group.py:529", 17, 9),
+                  "snark_challenge_prover_tpu/ops/pallas_group.py:529", 14, 9),
     "ec_add_fp2": (f"{PKG}/csrc/ec_add.cu",
-                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 51, 18),
+                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 40, 18),
     "ec_dbl_fp": (f"{PKG}/csrc/ec_dbl.cu",
-                  "snark_challenge_prover_tpu/ops/pallas_group.py:529", 12, 6),
+                  "snark_challenge_prover_tpu/ops/pallas_group.py:529", 11, 6),
     "ec_dbl_fp2": (f"{PKG}/csrc/ec_dbl.cu",
-                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 36, 12),
+                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 33, 12),
     "ec_add_fp3": (f"{PKG}/csrc/ec_add.cu",
-                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 102, 27),
+                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 78, 27),
     "ec_dbl_fp3": (f"{PKG}/csrc/ec_dbl.cu",
-                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 72, 18),
+                   "snark_challenge_prover_tpu/ops/pallas_group.py:529", 66, 18),
 }
 MODELS = {"MNT4753": mnt4753, "MNT6753": mnt6753}
 
@@ -156,6 +165,55 @@ def random_field(F, n: int, rng) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# phase: sass
+# --------------------------------------------------------------------------
+def sass_counts(lib: Path) -> dict:
+    """What ``cuobjdump -sass`` of a shared library shows of each kernel:
+    the instructions of its body, and of each function it calls (a
+    __noinline__ device function is compiled into the caller's section, from
+    its CALL target to its RET), by opcode, with the integer multiply class
+    (IMAD*) counted apart."""
+    nvcc = Path(_build._nvcc())
+    tool = shutil.which("cuobjdump") or str(nvcc.with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    sections, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            sections[name] = []
+        elif name and line.strip().startswith("/*") and ";" in line:
+            addr, rest = line.strip()[2:].split("*/", 1)
+            body = rest.split(";")[0].split()
+            if body and body[0].startswith("@"):
+                body = body[1:]
+            if body:
+                sections[name].append((int(addr, 16), body[0], body[1:2]))
+
+    def summary(instrs):
+        ops = {}
+        for _, op, _ in instrs:
+            ops[op] = ops.get(op, 0) + 1
+        return {"instructions": len(instrs),
+                "imad_class": sum(v for k, v in ops.items() if k.startswith("IMAD")),
+                "imad_wide": sum(v for k, v in ops.items() if k.startswith("IMAD.WIDE")),
+                "calls": ops.get("CALL.REL.NOINC", 0),
+                "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10])}
+
+    out = {}
+    for fname, instrs in sections.items():
+        targets = sorted({int(arg[0], 16) for _, op, arg in instrs if op.startswith("CALL") and arg})
+        callees, body_end = [], len(instrs)
+        for t in targets:
+            start = next(i for i, ins in enumerate(instrs) if ins[0] == t)
+            end = next(i for i in range(start, len(instrs)) if instrs[i][1].startswith("RET"))
+            callees.append({"address": hex(t), **summary(instrs[start:end + 1])})
+            body_end = min(body_end, start)
+        out[fname] = {"body": summary(instrs[:body_end]), "callees": callees}
+    return {"library": lib.name, "kernels": out}
+
+
+# --------------------------------------------------------------------------
 # phase: kernels
 # --------------------------------------------------------------------------
 def max_abs_err(got, want) -> int:
@@ -198,11 +256,23 @@ def check_kernels(model, g1_strip, g2_strip, rng, errs):
         Q = point_tensors(model, curve, strip, n, 5)
         P, Q = tuple(t.clone() for t in P), tuple(t.clone() for t in Q)
         ident, negP = curve.zero((n,)), curve.neg(P)
+        top = torch.from_numpy(ints_to_words([model.Fq.p - 1] * curve.deg)).to(model.device)
+        top = top[:, 0] if curve.deg == 1 else top.T.contiguous()  # p - 1 in every component
         for k in range(3):  # lanes 0..3: identity P, identity Q, P = Q, Q = -P
             P[k][..., 0] = ident[k][..., 0]
             Q[k][..., 1] = ident[k][..., 1]
             Q[k][..., 2] = P[k][..., 2]
             Q[k][..., 3] = negP[k][..., 3]
+            # extreme lanes, where a wrong lazy bound would show: 4 every
+            # coordinate p - 1 (the largest Karatsuba sums); 5 both Z = p - 1;
+            # 6 P all p - 1 against a point; 7 X, Y = p - 1 against a point
+            P[k][..., 4] = top
+            Q[k][..., 4] = top
+            P[k][..., 6] = top
+        for T in (P, Q):
+            T[2][..., 5] = top
+            T[0][..., 7] = top
+            T[1][..., 7] = top
         sfx = curve.kernel_field
         got = compare(f"ec_add_{sfx}", lambda: cuda_group.ec_add(curve, P, Q),
                       lambda: cuda_group.ec_add_plain(curve, P, Q), curve=curve.name)
@@ -278,13 +348,17 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
             bound_ms, bound_by = bound(name, lanes)
             row = {"name": name, "lanes": lanes, "path_launches": seen.get(lanes, 0),
                    "equal": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+                   "bound_ms": bound_ms, "bound_by": bound_by, "ns_per_lane": ms * 1e6 / lanes,
+                   "share_of_bound": bound_ms / ms}
             rows.append(row)
             if err:
                 raise AssertionError(f"kernel {name} disagrees with its plain version at {lanes} lanes")
             errs[name] = max(errs[name], err)
             if lanes == largest:
-                report[name] = {k: row[k] for k in ("lanes", "ms", "plain_ms", "bound_ms", "bound_by")}
+                report[name] = {k: row[k] for k in ("lanes", "ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "ns_per_lane", "share_of_bound")}
+                if name.startswith("ec_add"):
+                    report[name]["instantiation"] = cuda_group.add_kernel(curve).launcher
             elif lanes == commonest:
                 report[name]["commonest"] = {k: row[k] for k in (
                     "lanes", "path_launches", "ms", "plain_ms", "bound_ms", "bound_by")}
@@ -539,11 +613,12 @@ def main(argv=None) -> int:
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    _build.build_all()
+    libs = _build.build_all()
     emit("build", seconds=_build.build_seconds,
          ptxas=[ln.strip() for ln in _build.build_log.splitlines()
-                if "Compiling entry" in ln or "Used" in ln
+                if "Compiling entry" in ln or "Function properties" in ln or "Used" in ln
                 or ("stack frame" in ln and not ln.strip().startswith("0 bytes"))])
+    emit("sass", **sass_counts(libs["ec_add"]))
 
     errs, results = {}, {}
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))

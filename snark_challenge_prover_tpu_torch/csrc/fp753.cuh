@@ -7,7 +7,8 @@
 //   [24]      n0 = -p^{-1} mod 2^32
 //   [25..31]  unused
 //   [32.. )   curve constants for the group kernels: a (DEG*24 words),
-//             then 3b (DEG*24 words), Montgomery form
+//             then 3b and, for DEG > 1, NR * 3b (DEG*24 words each),
+//             Montgomery form
 // so the same code serves both 753-bit moduli (Fr and Fq) and any curve.
 //
 // The Montgomery product is CIOS (coarsely integrated operand scanning,
@@ -16,8 +17,11 @@
 // row of m*p that cancels the lowest word.  It is written with 64-bit
 // multiply-adds in C; the compiler lowers them to IMAD.WIDE chains.
 //
+// This is the arithmetic of mont_mul.cu and ec_dbl.cu; ec_add.cu runs on
+// fp753_fast.cuh.
+//
 // fp_mul / fp_add / fp_sub are __noinline__ on purpose: the group-law
-// kernels hold 17 (Fq) to 102 (Fq3) products each, and fully inlined the
+// kernels hold 12 (Fq) to 72 (Fq3) products each, and fully inlined the
 // unrolled code runs to tens of thousands of instructions and minutes of
 // nvcc.  Operands then live in the thread's local memory (the stack) and
 // each call loads them into registers, works there, and stores the

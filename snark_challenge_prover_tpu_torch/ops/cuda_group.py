@@ -2,23 +2,50 @@
 
 Counterpart of ``ops/pallas_group.py`` in the JAX package.  ``ec_add`` is
 the complete projective addition of Renes-Costello-Batina (2015, Alg. 1,
-arbitrary a): 12 products + 3 by a + 2 by 3b, no case distinctions.
-``ec_dbl`` is dbl-2007-bl with the identity (X = 0 and Z = 0) returned
-unchanged.  Both work on projective triples of coordinate tensors
-``(24, *batch)`` (G1, over Fq) or ``(deg, 24, *batch)`` (G2, over Fq2 or
-Fq3) and return canonical coordinates, so the kernel and the plain version agree
-word for word.  For a CUDA tensor the wrappers launch the kernels of
-``csrc/ec_add.cu`` / ``csrc/ec_dbl.cu`` or raise; for a CPU tensor they
-call the plain versions.
+arbitrary a): 12 products, the multiplications by a and 3b, no case
+distinctions.  ``ec_dbl`` is dbl-2007-bl with the identity (X = 0 and
+Z = 0) returned unchanged.  Both work on projective triples of coordinate
+tensors ``(24, *batch)`` (G1, over Fq) or ``(deg, 24, *batch)`` (G2, over
+Fq2 or Fq3) and return canonical coordinates, so the kernel and the plain
+version agree word for word.  For a CUDA tensor the wrappers launch the
+kernels of ``csrc/ec_add.cu`` / ``csrc/ec_dbl.cu`` or raise; for a CPU
+tensor they call the plain versions.
+
+The addition kernel is compiled once per curve group, with that group's
+modulus, a and the sparsity of 3b built in.  Each model declares the
+``AddKernel`` of its groups next to their constants, and ``Curve`` checks
+the declaration against a and 3b.  A curve that declares none has no
+addition kernel, and its CUDA tensors raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from .cuda_field import check_words, launch_lanes, launches
+
+
+@dataclass(frozen=True)
+class AddKernel:
+    """One instantiation of ``csrc/ec_add.cu`` (``EC_ADD_INSTANTIATIONS``),
+    for a curve with a = a_k u^a_s, a_k a small integer, and 3b = c u^b3_s
+    (u the extension's generator, u^0 = 1)."""
+
+    launcher: str
+    a_k: int
+    a_s: int
+    b3_s: int
+
+
+def add_kernel(curve) -> AddKernel:
+    """The addition kernel compiled for this curve; raises if there is none."""
+    if curve.add_form is None:
+        raise RuntimeError(f"{curve.name}: no addition kernel is compiled for its modulus, "
+                           "degree, a and 3b (csrc/ec_add.cu EC_ADD_INSTANTIATIONS)")
+    return curve.add_form
 
 
 def _mulsb(F, xs, ys):
@@ -34,13 +61,52 @@ def _const(c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return c.reshape(c.shape + (1,) * (like.ndim - c.ndim))
 
 
+def _times_monomial(F, x, s: int, scale, scale_nr):
+    """x c u^s in F = Fq[u] / (u^d - nr), given scale(v) = c v and
+    scale_nr(v) = (nr c) v on base-field values: component i of the result
+    is c x[i - s] for i >= s and (nr c) x[i - s + d] for i < s."""
+    d = getattr(F, "deg", 1)
+    if d == 1:
+        return scale(x)
+    return torch.stack([scale(x[i - s]) if i >= s else scale_nr(x[i - s + d]) for i in range(d)])
+
+
+def _mul_a(curve, F, xs):
+    """[a x for x in xs]: small-integer scalings where the curve has an
+    addition kernel (a = a_k u^a_s), full products otherwise."""
+    form = curve.add_form
+    if form is None:
+        return _mulsb(F, [_const(curve.a, xs[0])] * len(xs), xs)
+    base = getattr(F, "base", F)
+    nr = getattr(F, "nr", 1)
+    return [_times_monomial(F, x, form.a_s, lambda v: base.mul_small(v, form.a_k),
+                            lambda v: base.mul_small(v, form.a_k * nr)) for x in xs]
+
+
+def _mul_b3(curve, F, xs):
+    """[3b x for x in xs]: one base product a component where the curve has
+    an addition kernel (3b = c u^b3_s), full products otherwise."""
+    form, d = curve.add_form, curve.deg
+    if form is None or d == 1:  # over Fq the monomial is the constant itself
+        return _mulsb(F, [_const(curve.b3, xs[0])] * len(xs), xs)
+    c, nr_c = curve.b3[form.b3_s], curve.nr_b3[form.b3_s]
+    # every base product of every x through one batched call
+    srcs, consts = [], []
+    for x in xs:
+        for i in range(d):
+            srcs.append(x[i - form.b3_s] if i >= form.b3_s else x[i - form.b3_s + d])
+            consts.append(_const(c if i >= form.b3_s else nr_c, srcs[-1]))
+    prods = _mulsb(F.base, consts, srcs)
+    return [torch.stack(prods[k * d:(k + 1) * d]) for k in range(len(xs))]
+
+
 def ec_add_plain(curve, P, Q):
-    """Plain PyTorch complete addition on any device."""
+    """Plain PyTorch complete addition on any device, on the kernel's
+    schedule: a and 3b multiply as the monomials of the curve's addition
+    kernel, by small-integer scaling and one base product a component."""
     F = curve.F.plain()
     X1, Y1, Z1 = P
     X2, Y2, Z2 = Q
-    a = _const(curve.a, X1)
-    b3 = _const(curve.b3, X1)
     t0, t1, t2, t3, t4, t5 = _mulsb(
         F,
         [X1, Y1, Z1, F.add(X1, Y1), F.add(X1, Z1), F.add(Y1, Z1)],
@@ -49,15 +115,14 @@ def ec_add_plain(curve, P, Q):
     t3 = F.sub(t3, F.add(t0, t1))
     t4 = F.sub(t4, F.add(t0, t2))
     t5 = F.sub(t5, F.add(t1, t2))
-    b3t2, at4, t2a, t4b = _mulsb(F, [b3, a, a, b3], [t2, t4, t2, t4])
-    Z3 = F.add(b3t2, at4)
-    X3 = F.sub(t1, Z3)
-    Z3 = F.add(t1, Z3)
-    t1 = F.add(F.add(F.add(t0, t0), t0), t2a)
-    Y3, t2 = _mulsb(F, [X3, a], [Z3, F.sub(t0, t2a)])
-    t4 = F.add(t4b, t2)
-    m0, m1, m2, m3, m4 = _mulsb(F, [t1, t3, t5, t5, t3], [t4, X3, t4, Z3, t1])
-    return (F.sub(m1, m2), F.add(Y3, m0), F.add(m3, m4))
+    b3t2, b3t4 = _mul_b3(curve, F, [t2, t4])
+    at4, t2a = _mul_a(curve, F, [t4, t2])
+    z = F.add(b3t2, at4)                                # 3b t2 + a t4
+    xm, zm = F.sub(t1, z), F.add(t1, z)
+    u = F.add(F.add(F.add(t0, t0), t0), t2a)            # 3 t0 + a t2
+    v = F.add(b3t4, _mul_a(curve, F, [F.sub(t0, t2a)])[0])  # 3b t4 + a (t0 - a t2)
+    m = _mulsb(F, [t3, t5, xm, u, t5, t3], [xm, v, zm, v, zm, u])
+    return (F.sub(m[0], m[1]), F.add(m[2], m[3]), F.add(m[4], m[5]))
 
 
 def ec_dbl_plain(curve, P):
@@ -104,12 +169,16 @@ def _flat_inputs(curve, coords):
 
 
 def _launch(curve, op: str, coords):
+    if op == "add":
+        symbol = f"{add_kernel(curve).launcher}_launch"
+    else:
+        symbol = f"ec_dbl_{curve.kernel_field}_launch"
     shape, flat = _flat_inputs(curve, coords)
     n = flat[0].shape[1]
     outs = [torch.empty_like(flat[0]) for _ in range(3)]
     if n:
         name = f"ec_{op}_{curve.kernel_field}"
-        fn = _launcher(f"ec_{op}", f"{name}_launch", len(flat) + 3)
+        fn = _launcher(f"ec_{op}", symbol, len(flat) + 3)
         rc = fn(*(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n,
                 curve.kconst.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if rc != 0:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_group import ec_add, ec_dbl
+from .cuda_group import AddKernel, ec_add, ec_dbl
 from .field import resolve_device
 
 
@@ -18,7 +18,8 @@ class Curve:
     """y^2 z = x^3 + a x z^2 + b z^3 over the field object F; a and b are
     Montgomery-form constants of one element's shape, on F's device."""
 
-    def __init__(self, F, coeff_a: torch.Tensor, coeff_b: torch.Tensor, device, name: str = "Curve"):
+    def __init__(self, F, coeff_a: torch.Tensor, coeff_b: torch.Tensor, device, name: str = "Curve",
+                 add_kernel: AddKernel | None = None):
         if resolve_device(device) != F.device:
             raise ValueError(f"{name}: field on {F.device}, curve asked for {device}")
         self.F = F
@@ -31,9 +32,30 @@ class Curve:
         self.deg = getattr(F, "deg", 1)
         self.elem_shape = tuple(self.a.shape)
         self.kernel_field = "fp" if self.deg == 1 else f"fp{self.deg}"
+        blocks = [base.kconst, self.a.reshape(-1), self.b3.reshape(-1)]
+        if self.deg > 1:  # 3b times the non-residue, which the sparse 3b of a twist needs
+            self.nr_b3 = torch.stack([base.mul_small(c, F.nr) for c in self.b3])
+            blocks.append(self.nr_b3.reshape(-1))
         # constants block of the CUDA kernels: the base field's (p, n0),
-        # then a and 3b, component after component
-        self.kconst = torch.cat([base.kconst, self.a.reshape(-1), self.b3.reshape(-1)])
+        # then a, 3b and NR 3b, component after component
+        self.kconst = torch.cat(blocks)
+        # the addition kernel compiled for this curve, or None
+        if add_kernel is not None:
+            self._check_add_kernel(add_kernel)
+        self.add_form = add_kernel
+
+    def _check_add_kernel(self, k: AddKernel):
+        """The kernel has a = a_k u^a_s and 3b = c u^b3_s built in: refuse
+        it for a curve whose constants are not of that form."""
+        base, d = getattr(self.F, "base", self.F), self.deg
+        comps = lambda t: [t] if d == 1 else list(t)
+        a_want = [base.const(k.a_k if i == k.a_s else 0) for i in range(d)]
+        a_fits = 0 <= k.a_s < d and all(torch.equal(x, y) for x, y in zip(comps(self.a), a_want))
+        b3_zero = [bool(base.is_zero(c)) for c in comps(self.b3)]
+        b3_fits = 0 <= k.b3_s < d and b3_zero == [i != k.b3_s for i in range(d)]
+        if not (a_fits and b3_fits):
+            raise ValueError(f"{self.name}: a and 3b are not a = {k.a_k} u^{k.a_s} and "
+                             f"3b = c u^{k.b3_s}, which {k.launcher} has built in")
 
     # ---- constructors ---------------------------------------------------
     def zero(self, batch_shape=()):

@@ -7,7 +7,10 @@ G2: against the same formulas (Renes-Costello-Batina complete addition,
 dbl-2007-bl) evaluated over Fq2 (MNT4753) and Fq3 (MNT6753) with Python
 integers in this file."""
 
+import dataclasses
 import random
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,9 @@ from snark_challenge_prover_tpu.models import mnt6753 as jax_mnt6753
 from snark_challenge_prover_tpu.utils.bigint import ints_to_limbs, limbs_to_ints
 from snark_challenge_prover_tpu_torch.convert import planes_from_port, tensor_from_planes
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753
+from snark_challenge_prover_tpu_torch.ops import cuda_group
+from snark_challenge_prover_tpu_torch.ops.group import Curve
+from snark_challenge_prover_tpu_torch.utils.bigint import ints_to_words
 from tools import oracle as orc
 
 # one thread: the tensors here are small, and more threads only contend
@@ -212,3 +218,108 @@ def _check_integer_formulas(name, grp, deg):
     want = [pts2[0], pts[1], og.add(pts[2], pts[2]), None] + [
         og.add(p, q) for p, q in zip(pts[4:], pts2[4:])]
     assert [affine(T) for T in _proj_ints(fqs, curve.add(P, Q), deg)] == want
+
+
+# ---- the addition kernels: one instantiation per curve group ---------------
+GROUPS = [("MNT4753", "G1"), ("MNT4753", "G2"), ("MNT6753", "G1"), ("MNT6753", "G2")]
+CSRC = Path(cuda_group.__file__).resolve().parent.parent / "csrc"
+
+
+def _random_elements(curve, rng, n=8):
+    deg, p = curve.deg, curve.F.base.p if curve.deg > 1 else curve.F.p
+    vals = [p - 1] * deg + [rng.randrange(p) for _ in range((n - 1) * deg)]
+    t = torch.from_numpy(ints_to_words(vals)).reshape(24, n, deg).permute(2, 0, 1)
+    return t[0].contiguous() if deg == 1 else t.contiguous()
+
+
+@pytest.mark.parametrize("name,group,want", [
+    ("MNT4753", "G1", ("ec_add_fp_mnt4753", 2, 0, 0)),
+    ("MNT4753", "G2", ("ec_add_fp2_mnt4753", 26, 0, 1)),   # a' = (26, 0), 3b' = (0, c)
+    ("MNT6753", "G1", ("ec_add_fp_mnt6753", 11, 0, 0)),
+    ("MNT6753", "G2", ("ec_add_fp3_mnt6753", 11, 2, 0)),   # a' = 11 u^2, 3b' = (c, 0, 0)
+])
+def test_add_kernel_table_gives_each_curve_group_its_instantiation(name, group, want):
+    curve = getattr(MODELS[name][1].get("cpu"), group)
+    form = cuda_group.add_kernel(curve)
+    assert (form.launcher, form.a_k, form.a_s, form.b3_s) == want
+
+
+def test_add_kernel_table_matches_the_compiled_source():
+    """Every addition kernel a model declares is one of ec_add.cu's
+    instantiations, with the same degree, non-residue, small a and 3b
+    pattern, and the modulus compiled into it is the curve's."""
+    src = (CSRC / "ec_add.cu").read_text()
+    inst = {m[0]: m[1:] for m in re.findall(
+        r"X\((\w+), (\w+), (\d+), (\d+), (\d+), (\d+), (\d+)\)", src)}
+    hdr = (CSRC / "fp753_fast.cuh").read_text()
+    moduli = {}
+    for mod, body, n0 in re.findall(r"struct (Mod\w+) \{.*?W24\{\{(.*?)\}\}.*?n0 = (0x[0-9a-f]+)u",
+                                    hdr, re.S):
+        words = [int(w.rstrip("u"), 16) for w in body.replace("\n", " ").split(",")]
+        moduli[mod] = (sum(w << (32 * i) for i, w in enumerate(words)), int(n0, 16))
+    declared = []
+    for name, group in GROUPS:
+        curve = getattr(MODELS[name][1].get("cpu"), group)
+        form = cuda_group.add_kernel(curve)
+        declared.append(form.launcher)
+        mod, *ints = inst[form.launcher]
+        d, nr, a_k, a_s, b3_s = map(int, ints)
+        p = curve.F.p if curve.deg == 1 else curve.F.base.p
+        assert moduli[mod] == (p, (-pow(p, -1, 1 << 32)) % (1 << 32))
+        assert (d, a_k, a_s, b3_s) == (curve.deg, form.a_k, form.a_s, form.b3_s)
+        if d > 1:
+            assert nr == curve.F.nr
+    assert sorted(declared) == sorted(inst)
+
+
+@pytest.mark.parametrize("name,group", GROUPS)
+def test_sparse_products_equal_products_by_the_full_constants(name, group):
+    curve = getattr(MODELS[name][1].get("cpu"), group)
+    F = curve.F
+    x = _random_elements(curve, random.Random(f"{name} {group}"))
+    const = lambda c: c.reshape(c.shape + (1,))
+    assert torch.equal(cuda_group._mul_a(curve, F, [x])[0], F.mul(const(curve.a), x))
+    assert torch.equal(cuda_group._mul_b3(curve, F, [x])[0], F.mul(const(curve.b3), x))
+
+
+@pytest.mark.parametrize("name,group", [("MNT4753", "G1"), ("MNT6753", "G2")])
+def test_curve_with_general_constants_has_no_add_kernel(name, group):
+    """A curve outside the table gets no entry, the kernel's selector
+    raises for it (so its CUDA tensors would), and on the CPU the plain
+    version adds with full products by a and 3b."""
+    rng = random.Random(7)
+    model = MODELS[name][1].get("cpu")
+    old = getattr(model, group)
+    ocur = orc.ORACLES[name]()
+    F = ocur.g1.F if old.deg == 1 else ocur.g2.F
+    a, b = ([rng.randrange(ocur.fq_spec.p) for _ in range(old.deg)] for _ in range(2))
+    as_tensor = lambda vs: model.Fq.const(vs[0]) if old.deg == 1 else torch.stack(
+        [model.Fq.const(v) for v in vs])
+    curve = Curve(old.F, as_tensor(a), as_tensor(b), "cpu", "general")
+    assert curve.add_form is None
+    with pytest.raises(RuntimeError, match="no addition kernel"):
+        cuda_group.add_kernel(curve)
+    P = tuple(_random_elements(curve, rng, 4) for _ in range(3))
+    Q = tuple(_random_elements(curve, rng, 4) for _ in range(3))
+    ca, cb = (a[0], b[0]) if old.deg == 1 else (tuple(a), tuple(b))
+    fqs = ocur.fq_spec
+    want = [_rcb_add(F, ca, F.smul(3, cb), pp, qq)
+            for pp, qq in zip(_proj_ints(fqs, P, old.deg), _proj_ints(fqs, Q, old.deg))]
+    assert _proj_ints(fqs, curve.add(P, Q), old.deg) == want
+
+
+@pytest.mark.parametrize("name,group,change", [
+    ("MNT4753", "G1", dict(a_k=3)),
+    ("MNT4753", "G2", dict(b3_s=0)),
+    ("MNT6753", "G1", dict(b3_s=1)),
+    ("MNT6753", "G2", dict(a_s=0)),
+    ("MNT6753", "G2", dict(a_k=121)),
+])
+def test_curve_refuses_an_add_kernel_that_does_not_fit_its_constants(name, group, change):
+    """A declared addition kernel whose a or 3b differs from the curve's
+    (another small a, another monomial degree, a degree out of range) is
+    refused when the curve is made, not found out in a wrong sum."""
+    old = getattr(MODELS[name][1].get("cpu"), group)
+    wrong = dataclasses.replace(old.add_form, **change)
+    with pytest.raises(ValueError, match="built in"):
+        Curve(old.F, old.a, old.b, "cpu", old.name, wrong)

@@ -104,7 +104,7 @@ def test_fq3_kernel_wrappers_refuse_other_devices():
 
     m = mnt6753.get("cpu")
     assert (m.G1.kernel_field, m.G2.kernel_field, m.G2.deg) == ("fp", "fp3", 3)
-    assert tuple(m.G2.kconst.shape) == (32 + 2 * 3 * 24,)
+    assert tuple(m.G2.kconst.shape) == (32 + 3 * 3 * 24,)  # a, 3b and NR 3b
     meta = torch.empty(3, 24, 4, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cuda_group.ec_dbl(m.G2, (meta, meta, meta))
