@@ -13,9 +13,11 @@ that the host computes with exact integers, independently of the device
 code.  MNT4753 is proved at the challenge's own d + 1 = 2^20; MNT6753 at
 the challenge's own d + 1 = 2^15 (radix-2 domain) and at 25 * 2^15 =
 819200 (mixed-radix domain), the largest domain its scalar field has.  The
-kernel wrappers record the lane counts of each prove's launches; every
-kernel is then compared with its plain version again, and timed, at the
-lane counts of the largest prove of its curve.
+kernel wrappers record the lane counts of each prove's launches (and, for
+the doublings, the doublings a launch); every kernel is then compared with
+its plain version again, and timed, at the lane counts of the largest
+prove of its curve, the doublings at every (lanes, doublings) of the
+curve's proves and in bulk.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -28,6 +30,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import random
 import shutil
 import struct
@@ -50,6 +53,7 @@ from snark_challenge_prover_tpu_torch import cli  # noqa: E402
 from snark_challenge_prover_tpu_torch.host.curves import host_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops import _build, cuda_field, cuda_group  # noqa: E402
+from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.fft import get_evaluation_domain  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, compute_h)
@@ -76,7 +80,8 @@ MADS_PER_MONT_MUL = 2 * 2 * 24 * 24 + 24
 # count the products the function needs with the curves' own constants: a is
 # a small integer on every curve, so its multiplications are additions.  An
 # addition takes 12 extension products and two monomials c u^s for 3b (1, 2
-# or 3 base products); a doubling 11 extension products (its a ZZ is free).
+# or 3 base products); a doubling 11 extension products (its a ZZ is
+# additions), k times for a launch of k doublings.
 KERNELS = {
     "mont_mul": (f"{PKG}/csrc/mont_mul.cu",
                  "snark_challenge_prover_tpu/ops/pallas_field.py:141", 1, 3),
@@ -224,10 +229,10 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def check_kernels(model, g1_strip, g2_strip, rng, errs):
+def check_kernels(model, g1_strip, g2_strip, rng, errs, ks):
     """Every kernel of the model's path against its plain version at
-    N = 4099 (ragged, with the edge lanes).  Updates ``errs``, {kernel:
-    largest absolute difference}."""
+    N = 4099 (ragged, with the edge lanes), the doublings for each k in
+    ``ks``.  Updates ``errs``, {kernel: largest absolute difference}."""
     n = 4099
     rows = []
 
@@ -253,6 +258,7 @@ def check_kernels(model, g1_strip, g2_strip, rng, errs):
 
     for curve, strip in ((model.G1, g1_strip), (model.G2, g2_strip)):
         P = point_tensors(model, curve, strip, n, 0)
+        zero_x = curve.zero((n,))[0]
         Q = point_tensors(model, curve, strip, n, 5)
         P, Q = tuple(t.clone() for t in P), tuple(t.clone() for t in Q)
         ident, negP = curve.zero((n,)), curve.neg(P)
@@ -278,10 +284,18 @@ def check_kernels(model, g1_strip, g2_strip, rng, errs):
                       lambda: cuda_group.ec_add_plain(curve, P, Q), curve=curve.name)
         if not bool(curve.is_zero(got)[3]):
             raise AssertionError(f"{curve.name}: P + (-P) is not the identity")
-        got = compare(f"ec_dbl_{sfx}", lambda: cuda_group.ec_dbl(curve, P),
-                      lambda: cuda_group.ec_dbl_plain(curve, P), curve=curve.name)
-        if not all(torch.equal(g[..., 0], p[..., 0]) for g, p in zip(got, P)):
-            raise AssertionError(f"{curve.name}: doubling moved the identity")
+        # the doubling's own edge lanes: 8 (0, y, 0) with y != 1 (kept like the
+        # identity); 9 Y = 0 (to (0, -w^3, 0), which later doublings keep)
+        D = tuple(t.clone() for t in P)
+        D[0][..., 8], D[2][..., 8] = zero_x[..., 8], zero_x[..., 8]
+        D[1][..., 9] = zero_x[..., 9]
+        for k in ks:
+            got = compare(f"ec_dbl_{sfx}", lambda: cuda_group.ec_dbl(curve, D, k),
+                          lambda: cuda_group.ec_dbl_plain(curve, D, k), curve=curve.name, k=k)
+            if not all(torch.equal(g[..., i], p[..., i]) for g, p in zip(got, D) for i in (0, 8)):
+                raise AssertionError(f"{curve.name}: doubling moved the identity")
+            if not bool(curve.is_zero(got)[9]):
+                raise AssertionError(f"{curve.name}: doubling a point with Y = 0 kept X or Z")
     emit("kernels", curve=model.name, compared=rows)
 
 
@@ -289,30 +303,95 @@ PLAIN_CHUNK = 1 << 19  # lanes per call of a plain version (bounds its working m
 BULK_DBL_LANES = 1 << 18  # a large doubling shape for the record: the path's own are tiny
 
 
-def bound(name: str, lanes: int):
+def bound(name: str, lanes: int, k: int = 1):
     """(least milliseconds the card could take, what sets it): bytes moved
-    over the memory rate against multiply-adds over the integer rate."""
+    over the memory rate against multiply-adds over the integer rate; a
+    doubling launch of k doublings does k doublings' products on the
+    bytes of one."""
     _, _, mont_muls, values = KERNELS[name]
     by_bytes = lanes * values * 96 / PEAK_BYTES_PER_S * 1e3
-    by_ops = lanes * mont_muls * MADS_PER_MONT_MUL / PEAK_IMAD_PER_S * 1e3
+    by_ops = k * lanes * mont_muls * MADS_PER_MONT_MUL / PEAK_IMAD_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes > by_ops else "operations"
+
+
+def run_plain(plain, args, got):
+    """The plain version in chunks of PLAIN_CHUNK lanes on the kernel's
+    inputs: (milliseconds, the sum over the chunks; largest absolute
+    difference from the kernel's outputs ``got``)."""
+    plain_ms, err = 0.0, 0
+    plain(*(t[..., :1] for t in args))  # warm the plain version's first call
+    lanes = args[0].shape[-1]
+    for i in range(0, lanes, PLAIN_CHUNK):
+        part = tuple(t[..., i : i + PLAIN_CHUNK] for t in args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = as_tuple(plain(*part))
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        err = max(err, max_abs_err(tuple(g[..., i : i + PLAIN_CHUNK] for g in got), want))
+        del want, part
+    return plain_ms, err
+
+
+def check_dbl_at_path_shapes(model, curve, strip, name, shapes, errs):
+    """A doubling kernel against its plain version, and timed, at every
+    (lanes, k) of ``shapes`` ({(lanes, k): launches a prove}, the curve's
+    proves' own, the largest prove's first) and at (BULK_DBL_LANES, 1).
+    Returns the rows: a path row gives the µs a doubling (a launch's time
+    over k, the latency of the point's chain), the bulk row the ns a point
+    doubling (over lanes and k)."""
+    rows = []
+    for (lanes, k), per_prove in [*shapes.items(), ((BULK_DBL_LANES, 1), 0)]:
+        P = point_tensors(model, curve, strip, lanes, 0)
+        kern = lambda *a: cuda_group.ec_dbl(curve, a, k)
+        got = as_tuple(kern(*P))
+        ms = time_ms(lambda: kern(*P), 20 if lanes >= 4096 else 200)
+        plain_ms, err = run_plain(lambda *a: cuda_group.ec_dbl_plain(curve, a, k), P, got)
+        if err:
+            raise AssertionError(f"kernel {name} disagrees with its plain version at {lanes} "
+                                 f"lanes, k = {k}")
+        errs[name] = max(errs[name], err)
+        del got, P
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = bound(name, lanes, k)
+        row = {"name": name, "lanes": lanes, "k": k, "path_launches": per_prove,
+               "equal": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+        if per_prove:
+            row["us_per_doubling"] = ms * 1e3 / k
+        else:
+            row["ns_per_point_doubling"] = ms * 1e6 / (lanes * k)
+        rows.append(row)
+    return rows
 
 
 def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs):
     """Every kernel of the model's path against its plain version, and
     timed, at the lane counts the main path launched it with
     (``path_lanes``: kernel -> {lanes: launches}, read from the wrappers
-    after the curve's largest prove): the largest, the most frequent, and
-    for the doublings one large shape beside.  The plain version runs in chunks of PLAIN_CHUNK lanes on the
-    same inputs; its time is the sum over the chunks."""
+    after the curve's largest prove): the largest and the most frequent;
+    the doublings at every (lanes, k) their wrappers recorded in the
+    curve's proves, and one large shape beside (check_dbl_at_path_shapes).
+    The plain version runs in chunks of PLAIN_CHUNK lanes on the same
+    inputs; its time is the sum over the chunks."""
     report, rows = {}, []
     for name in path_kernels(model):
+        if name.startswith("ec_dbl"):
+            curve, strip = (model.G1, g1_strip) if name.endswith("_fp") else (model.G2, g2_strip)
+            dbl_rows = check_dbl_at_path_shapes(model, curve, strip, name, path_lanes[name], errs)
+            rows += dbl_rows
+            keys = ("lanes", "k", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")
+            report[name] = {**{k: dbl_rows[0][k] for k in (*keys, "us_per_doubling")},
+                            "instantiation": cuda_group.dbl_kernel(curve).launcher,
+                            "other_path_shapes": [
+                                {k: r[k] for k in ("path_launches", *keys, "us_per_doubling")}
+                                for r in dbl_rows[1:-1]],
+                            "bulk": {k: dbl_rows[-1][k] for k in (*keys, "ns_per_point_doubling")}}
+            continue
         seen = path_lanes[name]
         largest = max(seen)
         commonest = max(seen, key=lambda k: (seen[k], k))
         shapes = [largest] + [commonest] * (commonest != largest)
-        if "dbl" in name:
-            shapes.append(BULK_DBL_LANES)
         for lanes in shapes:
             if name == "mont_mul":
                 F = model.Fr
@@ -323,28 +402,13 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
                 curve, strip = (model.G1, g1_strip) if name.endswith("_fp") else (model.G2, g2_strip)
                 P = point_tensors(model, curve, strip, lanes, 0)
                 Q = point_tensors(model, curve, strip, lanes, 9)
-                if "add" in name:
-                    args = (*P, *Q)
-                    kern = lambda *a: cuda_group.ec_add(curve, a[:3], a[3:])
-                    plain = lambda *a: cuda_group.ec_add_plain(curve, a[:3], a[3:])
-                else:
-                    args = P
-                    kern = lambda *a: cuda_group.ec_dbl(curve, a)
-                    plain = lambda *a: cuda_group.ec_dbl_plain(curve, a)
+                args = (*P, *Q)
+                kern = lambda *a: cuda_group.ec_add(curve, a[:3], a[3:])
+                plain = lambda *a: cuda_group.ec_add_plain(curve, a[:3], a[3:])
                 del P, Q
             got = as_tuple(kern(*args))
             ms = time_ms(lambda: kern(*args), 20 if lanes >= 4096 else 200)
-            plain_ms, err = 0.0, 0
-            plain(*(t[..., :1] for t in args))  # warm the plain version's first call
-            for i in range(0, lanes, PLAIN_CHUNK):
-                part = tuple(t[..., i : i + PLAIN_CHUNK] for t in args)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                want = as_tuple(plain(*part))
-                torch.cuda.synchronize()
-                plain_ms += (time.perf_counter() - t0) * 1e3
-                err = max(err, max_abs_err(tuple(g[..., i : i + PLAIN_CHUNK] for g in got), want))
-                del want, part
+            plain_ms, err = run_plain(plain, args, got)
             bound_ms, bound_by = bound(name, lanes)
             row = {"name": name, "lanes": lanes, "path_launches": seen.get(lanes, 0),
                    "equal": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -359,12 +423,9 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
                                                     "bound_by", "ns_per_lane", "share_of_bound")}
                 if name.startswith("ec_add"):
                     report[name]["instantiation"] = cuda_group.add_kernel(curve).launcher
-            elif lanes == commonest:
+            else:
                 report[name]["commonest"] = {k: row[k] for k in (
                     "lanes", "path_launches", "ms", "plain_ms", "bound_ms", "bound_by")}
-            else:
-                report[name].update(bulk_lanes=lanes, bulk_ms=ms, bulk_plain_ms=plain_ms,
-                                    bulk_bound_ms=bound_ms, bulk_bound_by=bound_by)
             del got, args
             torch.cuda.empty_cache()
     emit("kernels_at_path_shapes", curve=model.name, compared=rows)
@@ -565,8 +626,9 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
          host_seconds={"write_files": t_files, "compute_h_and_check": t_hcheck,
                        "expected_proof": t_expected},
          peak_device_bytes=torch.cuda.max_memory_allocated(), launches=launches,
-         # per kernel, the four lane counts that carried most of its work: [lanes, launches]
-         lanes={k: sorted(v.items(), key=lambda kv: -kv[0] * kv[1])[:4]
+         # per kernel, the four lane counts that carried most of its work:
+         # [lanes, launches], for the doublings [[lanes, doublings], launches]
+         lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
                 for k, v in path_lanes.items()})
     return launches, path_lanes
 
@@ -578,11 +640,18 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
     rng = random.Random(args.seed)
-    check_kernels(model, g1_strip, g2_strip, rng, errs)
+    check_kernels(model, g1_strip, g2_strip, rng, errs, (1, default_window_bits(max(sizes))))
     prove_small(curve, workdir)
+    runs = []
     for n in sizes:  # ascending: the last prove is the largest
-        launches, path_lanes = prove_full(model, hc, g1_strip, g2_strip, workdir, n, args.seed)
+        runs.append(prove_full(model, hc, g1_strip, g2_strip, workdir, n, args.seed))
         torch.cuda.empty_cache()
+    launches, path_lanes = runs[-1]
+    # the doublings at every prove's (lanes, k), the largest prove's first
+    for _, lanes in runs[-2::-1]:
+        for name in (k for k in lanes if k.startswith("ec_dbl")):
+            for shape, count in lanes[name].items():
+                path_lanes[name].setdefault(shape, count)
     report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs)
     return launches, report
 
@@ -618,7 +687,8 @@ def main(argv=None) -> int:
          ptxas=[ln.strip() for ln in _build.build_log.splitlines()
                 if "Compiling entry" in ln or "Function properties" in ln or "Used" in ln
                 or ("stack frame" in ln and not ln.strip().startswith("0 bytes"))])
-    emit("sass", **sass_counts(libs["ec_add"]))
+    for stem in ("ec_add", "ec_dbl"):
+        emit("sass", **sass_counts(libs[stem]))
 
     errs, results = {}, {}
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))

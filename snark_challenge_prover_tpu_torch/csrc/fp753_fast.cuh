@@ -3,7 +3,7 @@
 // the modulus as compile-time constants, and lazily reduced values whose
 // bound the compiler carries in their type.  Elements are 24 little-endian
 // 32-bit words, Montgomery radix R = 2^768, as in fp753.cuh (which
-// mont_mul.cu and ec_dbl.cu keep using).
+// mont_mul.cu keeps using).
 //
 // The product (mont_mul) is CIOS with 24 words, fully unrolled, in the
 // even/odd form: the products a[j] * b[i] of even j and of odd j go to two

@@ -19,7 +19,8 @@ from . import limbs as lb
 # launches of the CUDA kernel, keyed by kernel name; incremented only where
 # the kernel is launched
 launches: collections.Counter = collections.Counter()
-# lanes (elements or points) of each of those launches: name -> {n: launches at n}
+# lanes (elements or points) of each of those launches: name -> {n: launches
+# at n}; for the doublings name -> {(n, k): launches}, k doublings a launch
 launch_lanes: collections.defaultdict = collections.defaultdict(collections.Counter)
 
 # elements per pass of the plain version: on the CPU the operands of a pass

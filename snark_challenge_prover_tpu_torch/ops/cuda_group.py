@@ -3,19 +3,22 @@
 Counterpart of ``ops/pallas_group.py`` in the JAX package.  ``ec_add`` is
 the complete projective addition of Renes-Costello-Batina (2015, Alg. 1,
 arbitrary a): 12 products, the multiplications by a and 3b, no case
-distinctions.  ``ec_dbl`` is dbl-2007-bl with the identity (X = 0 and
-Z = 0) returned unchanged.  Both work on projective triples of coordinate
-tensors ``(24, *batch)`` (G1, over Fq) or ``(deg, 24, *batch)`` (G2, over
-Fq2 or Fq3) and return canonical coordinates, so the kernel and the plain
-version agree word for word.  For a CUDA tensor the wrappers launch the
-kernels of ``csrc/ec_add.cu`` / ``csrc/ec_dbl.cu`` or raise; for a CPU
-tensor they call the plain versions.
+distinctions.  ``ec_dbl`` is dbl-2007-bl, ``times`` doublings in one
+launch, with the identity (X = 0 and Z = 0) kept at every doubling.  Both
+work on projective triples of coordinate tensors ``(24, *batch)`` (G1,
+over Fq) or ``(deg, 24, *batch)`` (G2, over Fq2 or Fq3) and return
+canonical coordinates, so the kernel and the plain version agree word for
+word.  For a CUDA tensor the wrappers launch the kernels of
+``csrc/ec_add.cu`` / ``csrc/ec_dbl.cu`` or raise; for a CPU tensor they
+call the plain versions.
 
-The addition kernel is compiled once per curve group, with that group's
-modulus, a and the sparsity of 3b built in.  Each model declares the
-``AddKernel`` of its groups next to their constants, and ``Curve`` checks
-the declaration against a and 3b.  A curve that declares none has no
-addition kernel, and its CUDA tensors raise.
+Both kernels are compiled once per curve group, with that group's modulus
+and small a (and for the addition the sparsity of 3b) built in.  Each
+model declares the ``AddKernel`` and ``DblKernel`` of its groups next to
+their constants, and ``Curve`` checks the declarations against a and 3b.
+A curve that declares none has no such kernel, and its CUDA tensors raise.
+The doubling kernel gives each point a warp: the MSM's Horner step doubles
+4 points or 1, whose time is the latency of one point's chain of products.
 """
 
 from __future__ import annotations
@@ -40,12 +43,30 @@ class AddKernel:
     b3_s: int
 
 
+@dataclass(frozen=True)
+class DblKernel:
+    """One instantiation of ``csrc/ec_dbl.cu`` (``EC_DBL_INSTANTIATIONS``),
+    for a curve with a = a_k u^a_s, a_k a small integer."""
+
+    launcher: str
+    a_k: int
+    a_s: int
+
+
 def add_kernel(curve) -> AddKernel:
     """The addition kernel compiled for this curve; raises if there is none."""
     if curve.add_form is None:
         raise RuntimeError(f"{curve.name}: no addition kernel is compiled for its modulus, "
                            "degree, a and 3b (csrc/ec_add.cu EC_ADD_INSTANTIATIONS)")
     return curve.add_form
+
+
+def dbl_kernel(curve) -> DblKernel:
+    """The doubling kernel compiled for this curve; raises if there is none."""
+    if curve.dbl_form is None:
+        raise RuntimeError(f"{curve.name}: no doubling kernel is compiled for its modulus, "
+                           "degree and a (csrc/ec_dbl.cu EC_DBL_INSTANTIATIONS)")
+    return curve.dbl_form
 
 
 def _mulsb(F, xs, ys):
@@ -71,10 +92,10 @@ def _times_monomial(F, x, s: int, scale, scale_nr):
     return torch.stack([scale(x[i - s]) if i >= s else scale_nr(x[i - s + d]) for i in range(d)])
 
 
-def _mul_a(curve, F, xs):
-    """[a x for x in xs]: small-integer scalings where the curve has an
-    addition kernel (a = a_k u^a_s), full products otherwise."""
-    form = curve.add_form
+def _mul_a(curve, F, xs, form):
+    """[a x for x in xs]: small-integer scalings where the curve has the
+    kernel ``form`` (an ``AddKernel`` or ``DblKernel``: a = a_k u^a_s),
+    full products where it has none."""
     if form is None:
         return _mulsb(F, [_const(curve.a, xs[0])] * len(xs), xs)
     base = getattr(F, "base", F)
@@ -116,39 +137,44 @@ def ec_add_plain(curve, P, Q):
     t4 = F.sub(t4, F.add(t0, t2))
     t5 = F.sub(t5, F.add(t1, t2))
     b3t2, b3t4 = _mul_b3(curve, F, [t2, t4])
-    at4, t2a = _mul_a(curve, F, [t4, t2])
+    at4, t2a = _mul_a(curve, F, [t4, t2], curve.add_form)
     z = F.add(b3t2, at4)                                # 3b t2 + a t4
     xm, zm = F.sub(t1, z), F.add(t1, z)
     u = F.add(F.add(F.add(t0, t0), t0), t2a)            # 3 t0 + a t2
-    v = F.add(b3t4, _mul_a(curve, F, [F.sub(t0, t2a)])[0])  # 3b t4 + a (t0 - a t2)
+    v = F.add(b3t4, _mul_a(curve, F, [F.sub(t0, t2a)], curve.add_form)[0])  # 3b t4 + a (t0 - a t2)
     m = _mulsb(F, [t3, t5, xm, u, t5, t3], [xm, v, zm, v, zm, u])
     return (F.sub(m[0], m[1]), F.add(m[2], m[3]), F.add(m[4], m[5]))
 
 
-def ec_dbl_plain(curve, P):
-    """Plain PyTorch doubling on any device; the identity is kept."""
+def ec_dbl_plain(curve, P, times: int = 1):
+    """Plain PyTorch doubling on any device, ``times`` times; the identity
+    is kept.  On the kernel's schedule: four levels of products, and a ZZ
+    as the monomial of the curve's doubling kernel (small-integer scaling)."""
     F = curve.F.plain()
-    X1, Y1, Z1 = P
-    XX, ZZ, Y1Z1 = _mulsb(F, [X1, Z1, Y1], [X1, Z1, Z1])
-    s = F.double(Y1Z1)
-    aZZ, ss, R = _mulsb(F, [_const(curve.a, ZZ), s, Y1], [ZZ, s, s])
-    w = F.add(aZZ, F.add(XX, F.add(XX, XX)))
-    XR = F.add(X1, R)
-    sss, RR, XR2 = _mulsb(F, [s, R, XR], [ss, R, XR])
-    B = F.sub(F.sub(XR2, XX), RR)
-    h = F.sub(F.sqr(w), F.double(B))
-    X3, Y3w = _mulsb(F, [h, w], [s, F.sub(B, h)])
-    Y3 = F.sub(Y3w, F.double(RR))
-    ident = torch.logical_and(F.is_zero(X1), F.is_zero(Z1))
-    return tuple(F.select(ident, i, o) for i, o in zip(P, (X3, Y3, sss)))
+    for _ in range(times):
+        X1, Y1, Z1 = P
+        XX, ZZ, Y1Z1 = _mulsb(F, [X1, Z1, Y1], [X1, Z1, Z1])
+        s = F.double(Y1Z1)
+        (aZZ,) = _mul_a(curve, F, [ZZ], curve.dbl_form)
+        w = F.add(aZZ, F.add(XX, F.add(XX, XX)))
+        ss, R, ww = _mulsb(F, [s, Y1, w], [s, s, w])
+        XR = F.add(X1, R)
+        sss, RR, XR2 = _mulsb(F, [s, R, XR], [ss, R, XR])
+        B = F.sub(F.sub(XR2, XX), RR)
+        h = F.sub(ww, F.double(B))
+        X3, Y3w = _mulsb(F, [h, w], [s, F.sub(B, h)])
+        Y3 = F.sub(Y3w, F.double(RR))
+        ident = torch.logical_and(F.is_zero(X1), F.is_zero(Z1))
+        P = tuple(F.select(ident, i, o) for i, o in zip(P, (X3, Y3, sss)))
+    return P
 
 
-def _launcher(stem: str, symbol: str, n_ptrs: int):
+def _launcher(stem: str, symbol: str, argtypes):
     from . import _build
 
     fn = getattr(_build.load(stem), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -168,23 +194,23 @@ def _flat_inputs(curve, coords):
     return shape, [t.expand(shape).contiguous().view(rows, -1) for t in coords]
 
 
-def _launch(curve, op: str, coords):
-    if op == "add":
-        symbol = f"{add_kernel(curve).launcher}_launch"
-    else:
-        symbol = f"ec_dbl_{curve.kernel_field}_launch"
+def _launch(curve, name: str, stem: str, symbol: str, coords, args, argtypes, k=None):
+    """Launch ``symbol`` of ``csrc/<stem>.cu`` on the coordinates (then the
+    outputs, the lanes, ``args`` and the stream) and count it under
+    ``name``, with its lanes n, or (n, k) for a launch of k doublings.
+    Returns the output triple."""
     shape, flat = _flat_inputs(curve, coords)
     n = flat[0].shape[1]
     outs = [torch.empty_like(flat[0]) for _ in range(3)]
     if n:
-        name = f"ec_{op}_{curve.kernel_field}"
-        fn = _launcher(f"ec_{op}", symbol, len(flat) + 3)
-        rc = fn(*(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n,
-                curve.kconst.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        ptr = ctypes.c_void_p
+        fn = _launcher(stem, symbol, [ptr] * (len(flat) + 3) + [ctypes.c_long, *argtypes, ptr])
+        rc = fn(*(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs), n, *args,
+                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc}")
         launches[name] += 1
-        launch_lanes[name][n] += 1
+        launch_lanes[name][n if k is None else (n, k)] += 1
     return tuple(t.view(shape) for t in outs)
 
 
@@ -199,11 +225,17 @@ def ec_add(curve, P, Q):
     """P + Q.  CUDA tensors: the kernel, or an exception."""
     if _device_type(curve, P) == "cpu":
         return ec_add_plain(curve, P, Q)
-    return _launch(curve, "add", (*P, *Q))
+    return _launch(curve, f"ec_add_{curve.kernel_field}", "ec_add",
+                   f"{add_kernel(curve).launcher}_launch", (*P, *Q),
+                   [curve.kconst.data_ptr()], [ctypes.c_void_p])
 
 
-def ec_dbl(curve, P):
-    """2 P.  CUDA tensors: the kernel, or an exception."""
+def ec_dbl(curve, P, times: int = 1):
+    """2^times P.  CUDA tensors: one launch of the kernel, or an exception."""
+    if times < 1:
+        raise ValueError(f"{curve.name}: times must be at least 1, got {times}")
     if _device_type(curve, P) == "cpu":
-        return ec_dbl_plain(curve, P)
-    return _launch(curve, "dbl", tuple(P))
+        return ec_dbl_plain(curve, P, times)
+    return _launch(curve, f"ec_dbl_{curve.kernel_field}", "ec_dbl",
+                   f"{dbl_kernel(curve).launcher}_launch", tuple(P), [times], [ctypes.c_int],
+                   k=times)

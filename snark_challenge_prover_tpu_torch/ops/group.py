@@ -3,14 +3,15 @@
 A point batch is a triple (X, Y, Z) of coordinate-field tensors
 (``ops.field.Fp`` for G1, ``ops.towers.Fp2`` or ``Fp3`` for G2).  The identity is
 (0, 1, 0).  ``add`` and ``double`` go through ``ops.cuda_group``: one fused
-CUDA kernel launch for CUDA tensors, the plain version for CPU tensors.
+CUDA kernel launch for CUDA tensors (``double(P, times)`` makes all its
+doublings in one), the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_group import AddKernel, ec_add, ec_dbl
+from .cuda_group import AddKernel, DblKernel, ec_add, ec_dbl
 from .field import resolve_device
 
 
@@ -19,7 +20,7 @@ class Curve:
     Montgomery-form constants of one element's shape, on F's device."""
 
     def __init__(self, F, coeff_a: torch.Tensor, coeff_b: torch.Tensor, device, name: str = "Curve",
-                 add_kernel: AddKernel | None = None):
+                 add_kernel: AddKernel | None = None, dbl_kernel: DblKernel | None = None):
         if resolve_device(device) != F.device:
             raise ValueError(f"{name}: field on {F.device}, curve asked for {device}")
         self.F = F
@@ -37,23 +38,34 @@ class Curve:
             self.nr_b3 = torch.stack([base.mul_small(c, F.nr) for c in self.b3])
             blocks.append(self.nr_b3.reshape(-1))
         # constants block of the CUDA kernels: the base field's (p, n0),
-        # then a, 3b and NR 3b, component after component
+        # then a, 3b and NR 3b, component after component; ec_add.cu reads
+        # 3b and NR 3b, and no kernel reads a (each has its a built in)
         self.kconst = torch.cat(blocks)
-        # the addition kernel compiled for this curve, or None
+        # the addition and doubling kernels compiled for this curve, or None
         if add_kernel is not None:
             self._check_add_kernel(add_kernel)
+        if dbl_kernel is not None and not self._a_is(dbl_kernel.a_k, dbl_kernel.a_s):
+            raise ValueError(f"{self.name}: a is not a = {dbl_kernel.a_k} u^{dbl_kernel.a_s}, "
+                             f"which {dbl_kernel.launcher} has built in")
         self.add_form = add_kernel
+        self.dbl_form = dbl_kernel
+
+    def _components(self, t):
+        return [t] if self.deg == 1 else list(t)
+
+    def _a_is(self, a_k: int, a_s: int) -> bool:
+        """a = a_k u^a_s (u the extension's generator, u^0 = 1)."""
+        base, d = getattr(self.F, "base", self.F), self.deg
+        want = [base.const(a_k if i == a_s else 0) for i in range(d)]
+        return 0 <= a_s < d and all(torch.equal(x, y) for x, y in zip(self._components(self.a), want))
 
     def _check_add_kernel(self, k: AddKernel):
         """The kernel has a = a_k u^a_s and 3b = c u^b3_s built in: refuse
         it for a curve whose constants are not of that form."""
         base, d = getattr(self.F, "base", self.F), self.deg
-        comps = lambda t: [t] if d == 1 else list(t)
-        a_want = [base.const(k.a_k if i == k.a_s else 0) for i in range(d)]
-        a_fits = 0 <= k.a_s < d and all(torch.equal(x, y) for x, y in zip(comps(self.a), a_want))
-        b3_zero = [bool(base.is_zero(c)) for c in comps(self.b3)]
+        b3_zero = [bool(base.is_zero(c)) for c in self._components(self.b3)]
         b3_fits = 0 <= k.b3_s < d and b3_zero == [i != k.b3_s for i in range(d)]
-        if not (a_fits and b3_fits):
+        if not (self._a_is(k.a_k, k.a_s) and b3_fits):
             raise ValueError(f"{self.name}: a and 3b are not a = {k.a_k} u^{k.a_s} and "
                              f"3b = c u^{k.b3_s}, which {k.launcher} has built in")
 
@@ -84,5 +96,6 @@ class Curve:
     def add(self, P, Q):
         return ec_add(self, P, Q)
 
-    def double(self, P):
-        return ec_dbl(self, P)
+    def double(self, P, times: int = 1):
+        """2^times P, in one kernel launch for CUDA tensors."""
+        return ec_dbl(self, P, times)

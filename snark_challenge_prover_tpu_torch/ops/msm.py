@@ -14,8 +14,8 @@ of N points each, with c-bit windows:
    and its bucket is never read.
 3. Triangle stage: sum_b b * bucket_b as a reverse suffix scan over the
    buckets followed by a tree reduction.
-4. Horner: c doublings and one addition per window, most significant
-   window first.
+4. Horner: c doublings (one launch) and one addition per window, most
+   significant window first.
 
 All EC arithmetic goes through ``Curve.add`` / ``Curve.double``; the rest
 is sort / gather / slicing in plain PyTorch.  The whole N is one chunk;
@@ -196,8 +196,7 @@ def msm_multi_staged(curve: Curve, points, scalars_canonical: torch.Tensor,
         del rows, digits
         S = tuple(t.reshape(t.shape[:k] + (Gr, M)) for t in S)
         for j in range(Gr):
-            for _ in range(c):
-                carry = curve.double(carry)
+            carry = curve.double(carry, times=c)
             carry = curve.add(carry, tuple(t[..., j, :] for t in S))
     return carry
 

@@ -2,10 +2,12 @@
 
 G1: limb for limb against the JAX package's jitted ``Curve._add_flat`` /
 ``_double_flat`` at batch 8 (what its fused kernel is itself held to),
-with the edge lanes identity P, identity Q, P = Q and Q = -P.
+with the edge lanes identity P, identity Q, P = Q and Q = -P; k doublings
+in one call against k calls of ``_double_flat``.
 G2: against the same formulas (Renes-Costello-Batina complete addition,
 dbl-2007-bl) evaluated over Fq2 (MNT4753) and Fq3 (MNT6753) with Python
-integers in this file."""
+integers in this file.  Then the kernel declarations of each curve group
+against the compiled sources and the curve's constants."""
 
 import dataclasses
 import random
@@ -107,10 +109,33 @@ def _check_g1_add(case):
     assert GT.is_zero(got).tolist() == [False, False, False, True] + [False] * (N - 4)
 
 
+_JITTED_DOUBLE = {}
+
+
+def _jax_double(GJ):
+    """The JAX doubling of this curve object, jitted once per test process."""
+    if id(GJ) not in _JITTED_DOUBLE:
+        _JITTED_DOUBLE[id(GJ)] = (GJ, jax.jit(GJ._double_flat))
+    return _JITTED_DOUBLE[id(GJ)][1]
+
+
 def _check_g1_double(case):
     GJ, PJ, _, GT, PT, _ = case
-    want = jax.jit(GJ._double_flat)(PJ)
+    want = _jax_double(GJ)(PJ)
     got = GT.double(PT)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(planes_from_port(g), np.asarray(w))
+    assert GT.is_zero(got).tolist() == [True] + [False] * (N - 1)
+
+
+def _check_g1_doubles(case, k):
+    """k doublings in one call equal k calls of the JAX doubling (jitted once)."""
+    GJ, PJ, _, GT, PT, _ = case
+    dbl = _jax_double(GJ)
+    want = PJ
+    for _ in range(k):
+        want = dbl(want)
+    got = GT.double(PT, times=k)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(planes_from_port(g), np.asarray(w))
     assert GT.is_zero(got).tolist() == [True] + [False] * (N - 1)
@@ -130,6 +155,16 @@ def test_mnt6753_g1_add_matches_jax_limb_for_limb(g1_case_mnt6753):
 
 def test_mnt6753_g1_double_matches_jax_limb_for_limb(g1_case_mnt6753):
     _check_g1_double(g1_case_mnt6753)
+
+
+@pytest.mark.parametrize("k", [2, 5])
+def test_g1_doubles_match_repeated_jax_doubling(g1_case, k):
+    _check_g1_doubles(g1_case, k)
+
+
+@pytest.mark.parametrize("k", [2, 5])
+def test_mnt6753_g1_doubles_match_repeated_jax_doubling(g1_case_mnt6753, k):
+    _check_g1_doubles(g1_case_mnt6753, k)
 
 
 # ---- the two formulas over a field given by exact-integer add/sub/mul -------
@@ -208,6 +243,11 @@ def _check_integer_formulas(name, grp, deg):
     assert _proj_ints(fqs, curve.add(P, Q), deg) == [
         _rcb_add(F, og.a, b3, p, q) for p, q in zip(Pi, Qi)]
     assert _proj_ints(fqs, curve.double(P), deg) == [_dbl_2007_bl(F, og.a, p) for p in Pi]
+    # four doublings in one call: the formula four times, the identity kept
+    want4 = Pi
+    for _ in range(4):
+        want4 = [_dbl_2007_bl(F, og.a, p) for p in want4]
+    assert _proj_ints(fqs, curve.double(P, times=4), deg) == want4
     # and as group elements: the affine results are the oracle's
     def affine(T):
         X, Y, Z = T
@@ -278,7 +318,8 @@ def test_sparse_products_equal_products_by_the_full_constants(name, group):
     F = curve.F
     x = _random_elements(curve, random.Random(f"{name} {group}"))
     const = lambda c: c.reshape(c.shape + (1,))
-    assert torch.equal(cuda_group._mul_a(curve, F, [x])[0], F.mul(const(curve.a), x))
+    for form in (curve.add_form, curve.dbl_form):
+        assert torch.equal(cuda_group._mul_a(curve, F, [x], form)[0], F.mul(const(curve.a), x))
     assert torch.equal(cuda_group._mul_b3(curve, F, [x])[0], F.mul(const(curve.b3), x))
 
 
@@ -323,3 +364,89 @@ def test_curve_refuses_an_add_kernel_that_does_not_fit_its_constants(name, group
     wrong = dataclasses.replace(old.add_form, **change)
     with pytest.raises(ValueError, match="built in"):
         Curve(old.F, old.a, old.b, "cpu", old.name, wrong)
+
+
+# ---- the doubling kernels: one instantiation per curve group ---------------
+@pytest.mark.parametrize("name,group,want", [
+    ("MNT4753", "G1", ("ec_dbl_fp_mnt4753", 2, 0)),
+    ("MNT4753", "G2", ("ec_dbl_fp2_mnt4753", 26, 0)),   # a' = (26, 0)
+    ("MNT6753", "G1", ("ec_dbl_fp_mnt6753", 11, 0)),
+    ("MNT6753", "G2", ("ec_dbl_fp3_mnt6753", 11, 2)),   # a' = 11 u^2
+])
+def test_dbl_kernel_table_gives_each_curve_group_its_instantiation(name, group, want):
+    curve = getattr(MODELS[name][1].get("cpu"), group)
+    form = cuda_group.dbl_kernel(curve)
+    assert (form.launcher, form.a_k, form.a_s) == want
+
+
+def test_dbl_kernel_table_matches_the_compiled_source():
+    """Every doubling kernel a model declares is one of ec_dbl.cu's
+    instantiations, with the same degree, non-residue and small a, and
+    the modulus of the addition kernel of the same group."""
+    dbl = {m[0]: m[1:] for m in re.findall(
+        r"X\((ec_dbl_\w+), (\w+), (\d+), (\d+), (\d+), (\d+)\)", (CSRC / "ec_dbl.cu").read_text())}
+    add = {m[0]: m[1:] for m in re.findall(
+        r"X\((ec_add_\w+), (\w+), (\d+), (\d+), (\d+), (\d+), (\d+)\)",
+        (CSRC / "ec_add.cu").read_text())}
+    declared = []
+    for name, group in GROUPS:
+        curve = getattr(MODELS[name][1].get("cpu"), group)
+        form = cuda_group.dbl_kernel(curve)
+        declared.append(form.launcher)
+        mod, *ints = dbl[form.launcher]
+        d, nr, a_k, a_s = map(int, ints)
+        assert mod == add[cuda_group.add_kernel(curve).launcher][0]
+        assert (d, a_k, a_s) == (curve.deg, form.a_k, form.a_s)
+        if d > 1:
+            assert nr == curve.F.nr
+    assert sorted(declared) == sorted(dbl)
+
+
+@pytest.mark.parametrize("name,group", [("MNT4753", "G2"), ("MNT6753", "G1")])
+def test_curve_with_general_constants_has_no_dbl_kernel(name, group):
+    """A curve without a declared doubling kernel: the kernel's selector
+    raises for it (so its CUDA tensors would), and on the CPU the plain
+    version doubles with a full product by a, k times in one call."""
+    rng = random.Random(8)
+    model = MODELS[name][1].get("cpu")
+    old = getattr(model, group)
+    ocur = orc.ORACLES[name]()
+    F = ocur.g1.F if old.deg == 1 else ocur.g2.F
+    a = [rng.randrange(ocur.fq_spec.p) for _ in range(old.deg)]
+    a_t = model.Fq.const(a[0]) if old.deg == 1 else torch.stack([model.Fq.const(v) for v in a])
+    curve = Curve(old.F, a_t, old.b, "cpu", "general")
+    assert curve.dbl_form is None
+    with pytest.raises(RuntimeError, match="no doubling kernel"):
+        cuda_group.dbl_kernel(curve)
+    P = tuple(_random_elements(curve, rng, 4) for _ in range(3))
+    want = _proj_ints(ocur.fq_spec, P, old.deg)
+    for _ in range(3):
+        want = [_dbl_2007_bl(F, a[0] if old.deg == 1 else tuple(a), p) for p in want]
+    assert _proj_ints(ocur.fq_spec, curve.double(P, times=3), old.deg) == want
+
+
+@pytest.mark.parametrize("name,group,change", [
+    ("MNT4753", "G1", dict(a_k=3)),
+    ("MNT4753", "G2", dict(a_s=1)),
+    ("MNT6753", "G2", dict(a_s=0)),
+    ("MNT6753", "G2", dict(a_s=3)),
+    ("MNT6753", "G2", dict(a_k=121)),
+])
+def test_curve_refuses_a_dbl_kernel_that_does_not_fit_its_a(name, group, change):
+    """A declared doubling kernel whose a differs from the curve's (another
+    small a, another monomial degree, a degree out of range) is refused
+    when the curve is made."""
+    old = getattr(MODELS[name][1].get("cpu"), group)
+    wrong = dataclasses.replace(old.dbl_form, **change)
+    with pytest.raises(ValueError, match="built in"):
+        Curve(old.F, old.a, old.b, "cpu", old.name, old.add_form, wrong)
+    assert Curve(old.F, old.a, old.b, "cpu", old.name, old.add_form, old.dbl_form).dbl_form == old.dbl_form
+
+
+def test_dbl_refuses_bad_arguments():
+    G1 = mnt4753.get("cpu").G1
+    P = G1.zero((2,))
+    for times in (0, -3):
+        with pytest.raises(ValueError, match="at least 1"):
+            G1.double(P, times=times)
+    assert G1.is_zero(G1.double(P, times=3)).tolist() == [True, True]

@@ -191,3 +191,21 @@ def test_scan_and_reduce_against_sequential_sums():
     assert [host(rscan, i) for i in range(n)] == suffix[::-1]
     total = port_msm._ec_reduce(G1, proj)
     assert _g1_proj_to_host(model, total) == prefix[-1]
+
+
+def test_horner_doubles_once_a_window():
+    """The Horner step makes its c doublings in one call (one kernel launch
+    on the card) a window: W calls of times = c, and the sum is still the
+    oracle's."""
+    rng = random.Random(37)
+    N = 5
+    ocur, og, pts = _setup("g1", N, rng)
+    model, proj = _g1_inputs(pts, ocur)
+    G1 = model.G1
+    calls = []
+    double = G1.double
+    G1.double = lambda P, times=1: (calls.append(times), double(P, times))[1]
+    scal = _scalars(N, rng, 1 << 83)
+    out = port_msm.msm_staged(G1, proj, from_planes16(ints_to_limbs(scal)), c=6, scalar_bits=83)
+    assert calls == [6] * 14  # W = ceil(83 / 6)
+    assert _g1_proj_to_host(model, out) == og.msm(scal, pts)
