@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--log2d 20] [--sizes6 32768,819200] [--seed 1]
+    python3 chip_smoke.py [--sizes4 1000,1048576,1572864]
+                          [--sizes6 24576,32768,819200] [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
 MNT4753 and for MNT6753 in turn: holds every kernel against its plain
@@ -10,14 +11,19 @@ committed fixture byte for byte through the command line's ``main``, and
 proves at full size (m = d + 1, all five MSMs) through ``prove_files`` on
 files written in the wire format, checking the result against proof bytes
 that the host computes with exact integers, independently of the device
-code.  MNT4753 is proved at the challenge's own d + 1 = 2^20; MNT6753 at
-the challenge's own d + 1 = 2^15 (radix-2 domain) and at 25 * 2^15 =
-819200 (mixed-radix domain), the largest domain its scalar field has.  The
-kernel wrappers record the lane counts of each prove's launches (and, for
-the doublings, the doublings a launch); every kernel is then compared with
-its plain version again, and timed, at the lane counts of the largest
-prove of its curve, the doublings at every (lanes, doublings) of the
-curve's proves and in bulk.
+code.  Before each full-size prove the files are read by both readers
+(the numpy one and the device reader that the prover uses on the card),
+timed, and their words held equal.  MNT4753 is proved at d + 1 = 1000 (a
+geometric sequence domain), at the challenge's own 2^20 (radix-2) and at
+2^20 + 2^19 = 1572864 (step radix-2, the domain a circuit of 2^20 to
+1.5 * 2^20 constraints gets); MNT6753 at 2^14 + 2^13 = 24576 (step
+radix-2), at the challenge's own 2^15 (radix-2) and at 25 * 2^15 = 819200
+(mixed radix), the largest domain its scalar field has.  The kernel
+wrappers record the lane counts of each prove's launches (and, for the
+doublings, the doublings a launch); every kernel is then compared with its
+plain version again, and timed, at the lane counts of the largest prove of
+its curve, the doublings at every (lanes, doublings) of the curve's proves
+and in bulk.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -51,6 +57,7 @@ sys.path.insert(0, str(REPO))
 
 from snark_challenge_prover_tpu_torch import cli  # noqa: E402
 from snark_challenge_prover_tpu_torch.host.curves import host_curve  # noqa: E402
+from snark_challenge_prover_tpu_torch.io import serialization as ser  # noqa: E402
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops import _build, cuda_field, cuda_group  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa: E402
@@ -503,37 +510,106 @@ def write_files(workdir: Path, hc, g1_strip, g2_strip, n: int, seed: int):
     return params_path, input_path, mont
 
 
-def check_h(fr, n: int, mont, h, rng):
-    """H(tau) (tau^n - 1) == A(tau) B(tau) - C(tau) at a random tau, with
-    A, B, C evaluated from their values on the domain by the barycentric
-    formula L_i(tau) = (tau^n - 1) omega^i / (n (tau - omega^i))."""
+def batch_inverse(values, p: int) -> list:
+    """[v^-1 mod p] by Montgomery's trick: one inversion, 3 (n - 1) products."""
+    prefix, acc = [], 1
+    for v in values:
+        prefix.append(acc)
+        acc = acc * v % p
+    inv = pow(acc, -1, p)
+    out = [0] * len(values)
+    for i in range(len(values) - 1, -1, -1):
+        out[i] = inv * prefix[i] % p
+        inv = inv * values[i] % p
+    return out
+
+
+def domain_runs(fr, kind: str, n: int):
+    """The points of a domain of the radix-2 family, from the field's roots
+    alone, as geometric runs (base, ratio, count) in the domain's order:
+    Z(x) = prod over the runs of (x^count - base^count).  None for a
+    sequence domain."""
+    p = fr.p
+    if kind in ("Radix2Domain", "MixedRadixDomain"):
+        return [(1, fr.get_root_of_unity(n), n)]
+    if kind == "ExtendedRadix2Domain":
+        w, shift = fr.get_root_of_unity(n // 2), fr.multiplicative_generator ** 2 % p
+        return [(1, w, n // 2), (shift, w, n // 2)]
+    if kind == "StepRadix2Domain":
+        big = 1 << (n.bit_length() - 1)
+        w = fr.get_root_of_unity(2 * big)
+        return [(1, w * w % p, big), (w, fr.get_root_of_unity(n - big), n - big)]
+    return None
+
+
+def lagrange_at(fr, kind: str, n: int, tau: int):
+    """(Z(tau), [L_i(tau)]) for the domain's points x_i: L_i(tau) =
+    Z(tau) / (Z'(x_i) (tau - x_i)).  On a run, Z'(x) = (count base^count / x)
+    prod over the other runs (x^count' - base'^count'), and that product is
+    periodic in i; a sequence domain (x_i = 2^i or i) takes O(n^2)."""
+    p = fr.p
+    runs = domain_runs(fr, kind, n)
+    if runs is None:
+        xs = [pow(2, i, p) for i in range(n)] if kind == "GeometricSequenceDomain" else list(range(n))
+        z = 1
+        for x in xs:
+            z = z * (tau - x) % p
+        dens = []
+        for i, x in enumerate(xs):
+            d = tau - x
+            for j, y in enumerate(xs):
+                if j != i:
+                    d = d * (x - y) % p
+            dens.append(d)
+        return z, [z * v % p for v in batch_inverse(dens, p)]
+    z = 1
+    for b, _, k in runs:
+        z = z * (pow(tau, k, p) - pow(b, k, p)) % p
+    out = []
+    for r, (b, ratio, k) in enumerate(runs):
+        others = [(k2, pow(b2, k2, p)) for j, (b2, _, k2) in enumerate(runs) if j != r]
+        period = 1  # the order of ratio^count' (a power of two) for each other run
+        for k2, _ in others:
+            t, order = pow(ratio, k2, p), 1
+            while t != 1:
+                t, order = t * t % p, order * 2
+            period = max(period, order)
+        K = []
+        for i in range(period):
+            x, v = b * pow(ratio, i, p) % p, k * pow(b, k, p) % p
+            for k2, c2 in others:
+                v = v * (pow(x, k2, p) - c2) % p
+            K.append(v)
+        scale = [z * v % p for v in batch_inverse(K, p)]
+        xs, diffs, x = [], [], b
+        for _ in range(k):
+            xs.append(x)
+            diffs.append(tau - x)
+            x = x * ratio % p
+        for i, v in enumerate(batch_inverse(diffs, p)):
+            out.append(xs[i] * v % p * scale[i % period] % p)
+    return z, out
+
+
+def check_h(fr, kind: str, n: int, mont, h, rng):
+    """H(tau) Z(tau) == A(tau) B(tau) - C(tau) at a random tau, with A, B, C
+    evaluated from their values on the domain's points (computed here from
+    the field's roots, independently of the device's domain) by the
+    Lagrange basis at tau, and Z the domain's vanishing polynomial."""
     p = fr.p
     tau = rng.randrange(2, p)
-    omega = fr.get_root_of_unity(n)
-    om = [1] * n
-    for i in range(1, n):
-        om[i] = om[i - 1] * omega % p
-    diff = [(tau - x) % p for x in om]
-    pref = [1] * (n + 1)  # batch inversion (Montgomery's trick)
-    for i, x in enumerate(diff):
-        pref[i + 1] = pref[i] * x % p
-    inv_run = pow(pref[n], -1, p)
-    weights = [0] * n
-    for i in range(n - 1, -1, -1):
-        weights[i] = om[i] * (pref[i] * inv_run % p) % p
-        inv_run = inv_run * diff[i] % p
-    z = (pow(tau, n, p) - 1) % p
-    scale = z * pow(n, -1, p) % p * pow(fr.R, -1, p) % p  # values are in Montgomery form
+    z, L = lagrange_at(fr, kind, n, tau)
+    rinv = pow(fr.R, -1, p)  # values are in Montgomery form
 
     def evaluate(vals):
-        return sum(v * wt for v, wt in zip(vals, weights)) % p * scale % p
+        return sum(v * wt for v, wt in zip(vals, L)) % p * rinv % p
 
     a, b, c = evaluate(mont["ca"]), evaluate(mont["cb"]), evaluate(mont["cc"])
     acc = 0
     for coeff in reversed(h):
         acc = (acc * tau + coeff) % p
     if acc * z % p != (a * b - c) % p:
-        raise AssertionError("compute_h: H(tau) Z(tau) != A(tau) B(tau) - C(tau)")
+        raise AssertionError(f"compute_h ({kind}): H(tau) Z(tau) != A(tau) B(tau) - C(tau)")
 
 
 def expected_proof(hc, g1_strip, g2_strip, mont, h, n: int) -> bytes:
@@ -568,6 +644,50 @@ def expected_proof(hc, g1_strip, g2_strip, mont, h, n: int) -> bytes:
     return g1(At) + g2(Bt2) + g1(C)
 
 
+def check_load(model, params_path: Path, input_path: Path, n: int):
+    """Both readers on the files just written (warm in the page cache): the
+    numpy reader on the host, then the device reader (pinned chunks, the
+    copy to the card and the unpacking there, to a synchronize); every
+    word array of the device reader must equal the numpy reader's."""
+    deg = model.g2_deg
+    t0 = time.perf_counter()
+    P_np = ser.read_params(params_path, deg)
+    t1 = time.perf_counter()
+    I_np = ser.read_input(input_path, P_np.d, P_np.m)
+    t2 = time.perf_counter()
+    reader = ser.DeviceReader(model.device)  # its pinned buffers, outside the times
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    P_dev = reader.read_params(params_path, deg)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    I_dev = reader.read_input(input_path, P_dev.d, P_dev.m)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    pairs = [((P_dev.d, P_dev.m), (P_np.d, P_np.m))]
+    for k in ("A", "B1", "B2", "L", "H"):
+        pairs += list(zip(getattr(P_dev, k), getattr(P_np, k)))
+    pairs += [(getattr(I_dev, k), getattr(I_np, k)) for k in ("w", "ca", "cb", "cc", "r")]
+    arrays = 0
+    for got, want in pairs:
+        if isinstance(want, tuple):
+            same = got == want
+        else:
+            arrays += 1
+            same = (got.device == model.device and got.dtype == torch.int32
+                    and torch.equal(got, torch.from_numpy(want).to(model.device)))
+        if not same:
+            raise AssertionError(f"{model.name} d + 1 = {n}: the device reader's words differ "
+                                 "from the numpy reader's")
+    sizes = {"params": params_path.stat().st_size, "input": input_path.stat().st_size}
+    del P_np, I_np, P_dev, I_dev, reader
+    torch.cuda.empty_cache()
+    emit("load", curve=model.name, d=n - 1, m=n, bytes=sizes, arrays_equal=arrays, equal=True,
+         numpy_seconds={"params": t1 - t0, "input": t2 - t1},
+         device_seconds={"params": t4 - t3, "input": t5 - t4},
+         device_gb_per_s=(sizes["params"] + sizes["input"]) / (t5 - t3) / 1e9)
+
+
 def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     """One prove at d + 1 = m = n through ``prove_files``, checked against
     the host's exact-integer proof.  Returns this run's launch counts and
@@ -575,6 +695,7 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     t0 = time.perf_counter()
     params_path, input_path, mont = write_files(workdir, hc, g1_strip, g2_strip, n, seed)
     t_files = time.perf_counter() - t0
+    check_load(model, params_path, input_path, n)
 
     # compute_h on its own, checked by a polynomial identity on the host
     t0 = time.perf_counter()
@@ -587,7 +708,7 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     del h_dev, domain
     if h[n - 1] != 0:
         raise AssertionError("compute_h: the top coefficient of H is not zero")
-    check_h(hc.fr_spec, n, mont, h, random.Random(seed))
+    check_h(hc.fr_spec, domain_name, n, mont, h, random.Random(seed))
     t_hcheck = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -658,23 +779,25 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--log2d", type=int, default=20,
-                    help="log2 of d + 1 for the MNT4753 full-size prove, 16..20 "
-                         "(the challenge's size is 20)")
+    ap.add_argument("--sizes4", default="1048576",
+                    help="d + 1 of the MNT4753 full-size proves (the challenge's size is "
+                         "2^20; 1572864 = 2^20 + 2^19 takes a step domain, 1000 a geometric "
+                         "sequence domain, whose exact set-up is O(n^2))")
     ap.add_argument("--sizes6", default="32768,819200",
                     help="d + 1 of the MNT6753 full-size proves (the challenge's size is "
-                         "32768; 819200 = 25 * 2^15 is the largest domain of its scalar field)")
+                         "32768; 24576 = 2^14 + 2^13 takes a step domain; 819200 = 25 * 2^15 "
+                         "is the largest domain of its scalar field)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
-    if not 16 <= args.log2d <= 20:
-        raise SystemExit("--log2d must be in [16, 20]")
     curves = args.curves.split(",")
     if not curves or any(c not in MODELS for c in curves):
         raise SystemExit(f"--curves takes a comma-separated subset of {', '.join(MODELS)}")
-    sizes = {"MNT4753": [1 << args.log2d],
-             "MNT6753": sorted(int(v) for v in args.sizes6.split(","))}  # int() refuses ""
+    sizes = {"MNT4753": sorted(int(v) for v in args.sizes4.split(",")),  # int() refuses ""
+             "MNT6753": sorted(int(v) for v in args.sizes6.split(","))}
+    if any(n < 8 for v in sizes.values() for n in v):
+        raise SystemExit("full-size proves need d + 1 >= 8")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -38,6 +38,8 @@ def main(argv=None) -> int:
         print(f"unknown curve {curve} (one of {', '.join(CURVES)})", file=sys.stderr)
         return 2
 
+    import torch
+
     from .io import serialization as ser
     from .models import mnt4753, mnt6753
     from .proof_systems.groth16 import ChallengeProver
@@ -47,17 +49,20 @@ def main(argv=None) -> int:
 
     def print_time(label):
         nonlocal t
+        if model.device.type == "cuda":
+            torch.cuda.synchronize(model.device)  # the label's device work is done
         t2 = time.perf_counter()
         print(f"{label}: {int((t2 - t) * 1000)} ms")
         t = t2
 
     model = {"MNT4753": mnt4753, "MNT6753": mnt6753}[curve].get(device)
-    params = ser.read_params(params_path, model.g2_deg)
+    prover = ChallengeProver(model)
+    params = prover.read_params(params_path)  # straight onto the card on a CUDA model
     print_time("load params")
-    inp = ser.read_input(input_path, params.d, params.m)
+    inp = prover.read_input(input_path, params.d, params.m)
     print_time("load inputs")
 
-    proof = ChallengeProver(model).prove_arrays(params, inp)
+    proof = prover.prove_arrays(params, inp)
     print_time("cpu")
 
     ser.write_proof(output_path, *proof)

@@ -13,19 +13,33 @@ File layouts (libsnark/main.cpp:50-83):
   input:  w[m+1] Fr, ca[d+1] Fr, cb[d+1] Fr, cc[d+1] Fr, r Fr
   output: A G1, B G2, C G1
 
-Parsing is numpy on the host into ``int32[24, count]`` word arrays (the
-device layout of ``ops/limbs.py``); the prover uploads them once.
+Two readers give the same ``int32[24, count]`` word arrays (``(deg, 24,
+count)`` for G2 coordinates; the device layout of ``ops/limbs.py``):
+
+  * ``read_params`` / ``read_input``: numpy on the host.  The prover uses
+    them on the CPU (``device="cpu"``); the tests hold the other reader to
+    them.
+  * ``DeviceReader``: the counterpart of the JAX package's native loader
+    (``io/native.py`` over ``native/sc_runtime.cpp``).  It reads a file once,
+    in fixed-size chunks, into a few reused pinned host buffers, copies each
+    chunk to one raw ``uint8`` tensor on the device while the next chunk is
+    read, and unpacks there with views and one copy a block.  On a CUDA
+    model the prover reads through it and only through it: a failure to pin,
+    copy or unpack raises.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 FQ_BYTES = 96
 N_WORDS = 24
+HEADER_BYTES = 16  # d, m: two size_t
 
 
 def bytes_to_words(buf) -> np.ndarray:
@@ -101,7 +115,9 @@ class Writer:
 
 @dataclass
 class Groth16Params:
-    """Challenge proving parameters (main.cpp:42-61) as host word arrays."""
+    """Challenge proving parameters (main.cpp:42-61) as word arrays: numpy
+    arrays from ``read_params``, tensors on the reader's device from
+    ``DeviceReader.read_params``."""
 
     d: int
     m: int
@@ -114,7 +130,9 @@ class Groth16Params:
 
 @dataclass
 class Groth16Input:
-    """Witness, precomputed domain evaluations and blinding r (main.cpp:63-83)."""
+    """Witness, precomputed domain evaluations and blinding r
+    (main.cpp:63-83) as word arrays: numpy arrays from ``read_input``,
+    tensors on the reader's device from ``DeviceReader.read_input``."""
 
     w: np.ndarray   # (24, m+1) Montgomery words
     ca: np.ndarray  # (24, d+1)
@@ -159,6 +177,131 @@ def read_params(path, g2_deg: int) -> Groth16Params:
 
 def read_input(path, d: int, m: int) -> Groth16Input:
     return read_input_bytes(_read_file(path), d, m)
+
+
+def _params_elements(d: int, m: int, g2_deg: int) -> int:
+    """96-byte elements after the params header: A, B1 (2 each a point),
+    B2 (2 * deg), L and H (main.cpp:50-61)."""
+    return 2 * (m + 1) * 2 + 2 * g2_deg * (m + 1) + 2 * (m - 1) + 2 * d
+
+
+def _check_size(size: int, want: int, what: str):
+    """The numpy reader's two checks, from the file's size alone."""
+    if size < want:
+        raise ValueError("file shorter than its header says")
+    if size > want:
+        raise ValueError(f"{what} trailing bytes: {size - want}")
+
+
+class _Blocks:
+    """Consecutive blocks of a (elements, 24) int32 view, unpacked on its
+    device with one copy a block."""
+
+    def __init__(self, elems: torch.Tensor):
+        self.elems = elems
+        self.off = 0
+
+    def _take(self, count: int) -> torch.Tensor:
+        out = self.elems[self.off : self.off + count]
+        self.off += count
+        return out
+
+    def fq_block(self, count: int) -> torch.Tensor:
+        """(count, 24) -> (24, count)."""
+        return self._take(count).t().contiguous()
+
+    def g1_block(self, count: int):
+        """x and y interleave: (count, 2, 24) -> (x, y), each (24, count)."""
+        xy = self._take(2 * count).view(count, 2, N_WORDS).permute(1, 2, 0).contiguous()
+        return xy[0], xy[1]
+
+    def g2_block(self, count: int, deg: int):
+        """(count, 2, deg, 24) -> (x, y), each (deg, 24, count)."""
+        xy = self._take(2 * deg * count).view(count, 2, deg, N_WORDS).permute(1, 2, 3, 0)
+        xy = xy.contiguous()
+        return xy[0], xy[1]
+
+
+class DeviceReader:
+    """The challenge files read straight onto ``device``.
+
+    ``upload`` reads a file once, ``chunk_bytes`` at a time, into
+    ``buffers`` reused host buffers (pinned for a CUDA device) and copies
+    each chunk into one raw ``uint8`` tensor on the device with
+    ``non_blocking=True``, so that reading chunk i + 1 overlaps the copy of
+    chunk i; a buffer is refilled only after the event of its last copy.
+    ``read_params`` / ``read_input`` then unpack on the device: the header
+    (16 bytes, the only bytes brought back), the size checks of the numpy
+    reader, an ``int32`` view of the body (every block starts at a multiple
+    of 4 bytes) and one transposing copy a block.  The words equal the
+    numpy reader's.  Nothing falls back to the numpy reader: a failure to
+    pin, copy or unpack raises."""
+
+    def __init__(self, device, chunk_bytes: int = 64 << 20, buffers: int = 2):
+        if chunk_bytes < 1 or buffers < 1:
+            raise ValueError("DeviceReader needs chunk_bytes >= 1 and buffers >= 1")
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        self._bufs = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=self._cuda)
+                      for _ in range(buffers)]
+        self._copied = [None] * buffers  # CUDA event of the last copy out of each buffer
+
+    def upload(self, path) -> torch.Tensor:
+        """The file's bytes as one ``uint8`` tensor on the device."""
+        with open(path, "rb", buffering=0) as f:
+            size = os.fstat(f.fileno()).st_size
+            raw = torch.empty(size, dtype=torch.uint8, device=self.device)
+            off, i = 0, 0
+            while off < size:
+                j = i % len(self._bufs)
+                if self._copied[j] is not None:
+                    self._copied[j].synchronize()
+                n = min(size - off, self._bufs[j].numel())
+                buf = self._bufs[j][:n]
+                view, got = memoryview(buf.numpy()), 0
+                while got < n:
+                    k = f.readinto(view[got:])
+                    if not k:
+                        raise ValueError(f"{path}: file ended at {off + got} of {size} bytes")
+                    got += k
+                raw[off : off + n].copy_(buf, non_blocking=True)
+                if self._cuda:
+                    self._copied[j] = torch.cuda.Event()
+                    self._copied[j].record()
+                off += n
+                i += 1
+        return raw
+
+    @staticmethod
+    def _elements(raw: torch.Tensor, start: int, count: int) -> torch.Tensor:
+        """``count`` 96-byte elements from byte ``start`` as an (count, 24) int32 view."""
+        return raw[start : start + count * FQ_BYTES].view(torch.int32).view(count, N_WORDS)
+
+    def read_params(self, path, g2_deg: int) -> Groth16Params:
+        raw = self.upload(path)
+        if raw.numel() < HEADER_BYTES:
+            raise ValueError("file shorter than its header says")
+        d, m = struct.unpack("<QQ", raw[:HEADER_BYTES].cpu().numpy().tobytes())
+        if m < 1:
+            raise ValueError(f"params header: m = {m}, at least 1 expected")
+        count = _params_elements(d, m, g2_deg)
+        _check_size(raw.numel(), HEADER_BYTES + count * FQ_BYTES, "params")
+        r = _Blocks(self._elements(raw, HEADER_BYTES, count))
+        A = r.g1_block(m + 1)
+        B1 = r.g1_block(m + 1)
+        B2 = r.g2_block(m + 1, g2_deg)
+        L = r.g1_block(m - 1)
+        H = r.g1_block(d)
+        return Groth16Params(d, m, A, B1, B2, L, H)
+
+    def read_input(self, path, d: int, m: int) -> Groth16Input:
+        raw = self.upload(path)
+        count = (m + 1) + 3 * (d + 1) + 1
+        _check_size(raw.numel(), count * FQ_BYTES, "input")
+        r = _Blocks(self._elements(raw, 0, count))
+        w = r.fq_block(m + 1)
+        ca, cb, cc = (r.fq_block(d + 1) for _ in range(3))
+        return Groth16Input(w, ca, cb, cc, r.fq_block(1))
 
 
 def write_proof(path, A, B, C) -> bytes:

@@ -75,16 +75,33 @@ class ChallengeProver:
         self.model = model
         self.msm_window = msm_window
         self.profiler = Profiler(model.device, verbose)
+        # a CUDA model reads its files straight onto the card, the CPU through numpy
+        self._reader = ser.DeviceReader(model.device) if model.device.type == "cuda" else None
+
+    def read_params(self, path) -> ser.Groth16Params:
+        """The params file as word arrays on the model's device."""
+        if self._reader is None:
+            return ser.read_params(path, self.model.g2_deg)
+        return self._reader.read_params(path, self.model.g2_deg)
+
+    def read_input(self, path, d: int, m: int) -> ser.Groth16Input:
+        """The input file as word arrays on the model's device."""
+        if self._reader is None:
+            return ser.read_input(path, d, m)
+        return self._reader.read_input(path, d, m)
 
     def prove_files(self, params_path, input_path, output_path=None) -> bytes:
         """File -> file pipeline, matching `main <CURVE> compute`
-        (main.cpp:274-295); returns the proof bytes."""
+        (main.cpp:274-295); returns the proof bytes.  On a CUDA model the
+        load phases include the copy to the card and the unpacking there
+        (each phase ends in a synchronize), so "compute H" and the MSM
+        phases start with their inputs on the card."""
         prof = self.profiler
         prof.enter_block("load params")
-        params = ser.read_params(params_path, self.model.g2_deg)
+        params = self.read_params(params_path)
         prof.leave_block("load params")
         prof.enter_block("load inputs")
-        inp = ser.read_input(input_path, params.d, params.m)
+        inp = self.read_input(input_path, params.d, params.m)
         prof.leave_block("load inputs")
         proof = self.prove_arrays(params, inp)
         prof.enter_block("store")
@@ -93,7 +110,8 @@ class ChallengeProver:
         return data
 
     def prove_arrays(self, params: ser.Groth16Params, inp: ser.Groth16Input):
-        """Host word arrays -> affine proof (A, B, C) as host word arrays."""
+        """Word arrays (tensors on the model's device, or host arrays, which
+        are copied there) -> affine proof (A, B, C) as host word arrays."""
         model = self.model
         prof = self.profiler
         Fr, G1, G2 = model.Fr, model.G1, model.G2
@@ -101,6 +119,10 @@ class ChallengeProver:
         dev = model.device
 
         def up(arr):
+            if isinstance(arr, torch.Tensor):
+                if arr.device != dev:
+                    raise ValueError(f"words on {arr.device}, model on {dev}")
+                return arr
             return torch.from_numpy(arr).to(dev)
 
         prof.enter_block("compute H")
