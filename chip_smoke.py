@@ -546,11 +546,13 @@ def lagrange_at(fr, kind: str, n: int, tau: int):
     """(Z(tau), [L_i(tau)]) for the domain's points x_i: L_i(tau) =
     Z(tau) / (Z'(x_i) (tau - x_i)).  On a run, Z'(x) = (count base^count / x)
     prod over the other runs (x^count' - base'^count'), and that product is
-    periodic in i; a sequence domain (x_i = 2^i or i) takes O(n^2)."""
+    periodic in i; the geometric sequence domain (x_i = 2^i) takes O(n^2)."""
     p = fr.p
     runs = domain_runs(fr, kind, n)
     if runs is None:
-        xs = [pow(2, i, p) for i in range(n)] if kind == "GeometricSequenceDomain" else list(range(n))
+        if kind != "GeometricSequenceDomain":
+            raise ValueError(f"no host points for a {kind}")
+        xs = [pow(2, i, p) for i in range(n)]
         z = 1
         for x in xs:
             z = z * (tau - x) % p
@@ -779,11 +781,11 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sizes4", default="1048576",
+    ap.add_argument("--sizes4", default="1000,1048576,1572864",
                     help="d + 1 of the MNT4753 full-size proves (the challenge's size is "
                          "2^20; 1572864 = 2^20 + 2^19 takes a step domain, 1000 a geometric "
                          "sequence domain, whose exact set-up is O(n^2))")
-    ap.add_argument("--sizes6", default="32768,819200",
+    ap.add_argument("--sizes6", default="24576,32768,819200",
                     help="d + 1 of the MNT6753 full-size proves (the challenge's size is "
                          "32768; 24576 = 2^14 + 2^13 takes a step domain; 819200 = 25 * 2^15 "
                          "is the largest domain of its scalar field)")

@@ -225,8 +225,8 @@ class _Blocks:
 class DeviceReader:
     """The challenge files read straight onto ``device``.
 
-    ``upload`` reads a file once, ``chunk_bytes`` at a time, into
-    ``buffers`` reused host buffers (pinned for a CUDA device) and copies
+    ``upload`` reads a file once, ``chunk_bytes`` at a time, into two
+    reused host buffers (pinned for a CUDA device) and copies
     each chunk into one raw ``uint8`` tensor on the device with
     ``non_blocking=True``, so that reading chunk i + 1 overlaps the copy of
     chunk i; a buffer is refilled only after the event of its last copy.
@@ -237,14 +237,14 @@ class DeviceReader:
     numpy reader's.  Nothing falls back to the numpy reader: a failure to
     pin, copy or unpack raises."""
 
-    def __init__(self, device, chunk_bytes: int = 64 << 20, buffers: int = 2):
-        if chunk_bytes < 1 or buffers < 1:
-            raise ValueError("DeviceReader needs chunk_bytes >= 1 and buffers >= 1")
+    def __init__(self, device, chunk_bytes: int = 64 << 20):
+        if chunk_bytes < 1:
+            raise ValueError("DeviceReader needs chunk_bytes >= 1")
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._bufs = [torch.empty(chunk_bytes, dtype=torch.uint8, pin_memory=self._cuda)
-                      for _ in range(buffers)]
-        self._copied = [None] * buffers  # CUDA event of the last copy out of each buffer
+                      for _ in range(2)]
+        self._copied = [None, None]  # CUDA event of the last copy out of each buffer
 
     def upload(self, path) -> torch.Tensor:
         """The file's bytes as one ``uint8`` tensor on the device."""

@@ -6,7 +6,12 @@ split by 2 over one by 5, run op by op (compiling its unrolled recursion
 takes minutes); both new domains at n = 10, 20, 40, 50 (the 5 over 5
 splits) and, the extended one, at its only size 2^16, against
 exact-integer evaluation of the polynomial at sampled domain points.
-Exact limb equality throughout."""
+StepRadix2Domain at n = 12 (MNT4753's Fr) and 24 (MNT6753's Fr) and the
+geometric and arithmetic sequence domains at n = 7 and 6 against the JAX
+package's classes, each JAX operation under its own jax.jit (the JAX
+compute_h runs over those); the domain selection against the JAX
+package's over a grid of sizes for both fields.  Exact limb equality
+throughout."""
 
 import random
 
@@ -19,10 +24,12 @@ import torch
 from snark_challenge_prover_tpu.models import mnt4753 as jax_mnt4753
 from snark_challenge_prover_tpu.models import mnt6753 as jax_mnt6753
 from snark_challenge_prover_tpu.ops import fft as jax_fft
+from snark_challenge_prover_tpu.ops import sequence_domains as jax_seq
 from snark_challenge_prover_tpu.proof_systems import groth16 as jax_groth16
 from snark_challenge_prover_tpu.utils.bigint import ints_to_limbs, limbs_to_ints
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753
 from snark_challenge_prover_tpu_torch.ops import fft as port_fft
+from snark_challenge_prover_tpu_torch.ops import sequence_domains as port_seq
 from snark_challenge_prover_tpu_torch.ops.limbs import from_planes16, to_planes16
 from snark_challenge_prover_tpu_torch.proof_systems import groth16 as port_groth16
 
@@ -93,8 +100,7 @@ def test_power_table_and_domain_selection():
     t = port_fft.power_table(F, 17, 11)
     assert [F.spec.from_mont(v) for v in limbs_to_ints(to_planes16(t))] == [
         pow(17, i, F.p) for i in range(11)]
-    with pytest.raises(NotImplementedError):
-        port_fft.get_evaluation_domain(F, 12)
+    assert isinstance(port_fft.get_evaluation_domain(F, 12), port_fft.StepRadix2Domain)
     with pytest.raises(ValueError):
         port_fft.Radix2Domain(F, 6)
 
@@ -170,9 +176,9 @@ def test_domain_selection_for_a_field_with_a_small_subgroup():
     assert kinds == {8: "Radix2Domain", 1 << 15: "Radix2Domain", 1 << 16: "ExtendedRadix2Domain",
                      10: "MixedRadixDomain", 25: "MixedRadixDomain", 25 << 15: "MixedRadixDomain"}
     assert port_fft.get_evaluation_domain(F, 25 << 15).n == 819200
-    for n in (12, 1 << 17, 3 << 10):  # step and sequence domains are not ported
-        with pytest.raises(NotImplementedError):
-            port_fft.get_evaluation_domain(F, n)
+    for n, kind in ((12, "StepRadix2Domain"), (1 << 17, "GeometricSequenceDomain"),
+                    (3 << 10, "StepRadix2Domain")):  # no 2^a 5^b fits these
+        assert type(port_fft.get_evaluation_domain(F, n)).__name__ == kind
     for n in (125, 5 << 16):  # beyond the field's 5^2 and 2^15, as in the JAX package
         with pytest.raises(ValueError):
             port_fft.get_evaluation_domain(F, n)
@@ -180,3 +186,105 @@ def test_domain_selection_for_a_field_with_a_small_subgroup():
         port_fft.MixedRadixDomain(F, 16)
     with pytest.raises(ValueError):
         port_fft.ExtendedRadix2Domain(F, 1 << 15)
+
+
+# ---- step radix-2 and sequence domains against the JAX package's --------------
+def _jit_transforms(dom):
+    """The JAX domain with its fft, ifft and divide_by_z_on_coset each under
+    its own jax.jit, compiled once: its coset_fft and icoset_fft (one product
+    with the coset's powers around those) and the JAX compute_h then reuse
+    them (the whole compute_h under one jit compiles for minutes here).  A
+    sequence domain's matrices are built first, so that no trace keeps them."""
+    if hasattr(dom, "_eval_matrix"):
+        dom._eval_matrix(), dom._interp_matrix()
+    for op in ("fft", "ifft", "divide_by_z_on_coset"):
+        setattr(dom, op, jax.jit(getattr(dom, op)))
+    return dom
+
+
+NEW_DOMAINS = {
+    "step12": (jax_mnt4753, mnt4753, 12, "StepRadix2Domain"),
+    "step24": (jax_mnt6753, mnt6753, 24, "StepRadix2Domain"),
+    "geometric7": (jax_mnt4753, mnt4753, 7, "GeometricSequenceDomain"),
+    "arithmetic6": (jax_mnt4753, mnt4753, 6, "ArithmeticSequenceDomain"),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(NEW_DOMAINS))
+def new_case(request):
+    """Both packages' results of the five operations and compute_h; an
+    operation that raises gives its exception type."""
+    jmod, tmod, n, kind = NEW_DOMAINS[request.param]
+    mj, mt = jmod.get(), tmod.get("cpu")
+    if kind == "ArithmeticSequenceDomain":  # the selection never picks it: built directly
+        dj = jax_seq.ArithmeticSequenceDomain(mj.Fr, n)
+        dt = port_seq.ArithmeticSequenceDomain(mt.Fr, n)
+    else:
+        dj = jax_fft.get_evaluation_domain(mj.Fr, n)
+        dt = port_fft.get_evaluation_domain(mt.Fr, n)
+    assert type(dj).__name__ == type(dt).__name__ == kind
+    rng = random.Random(n)
+    vals = [[rng.randrange(mt.Fr.p) for _ in range(n)] for _ in range(3)]
+    vals[0][0], vals[0][1] = 0, mt.Fr.p - 1
+    planes = [ints_to_limbs([mt.Fr.spec.to_mont(v) for v in col]) for col in vals]
+
+    def results(run):
+        out = {}
+        for op in OPS + ["compute_h"]:
+            try:
+                out[op] = run(op)
+            except ValueError as e:  # the arithmetic domain's coset meets it at 0
+                out[op] = type(e)
+        return out
+
+    jd, ja = _jit_transforms(dj), [jnp.asarray(t) for t in planes]
+    want = results(lambda op: np.asarray(
+        jax_groth16.compute_h(mj, jd, *ja) if op == "compute_h" else getattr(jd, op)(ja[0])))
+    ta = [from_planes16(t) for t in planes]
+    got = results(lambda op: to_planes16(
+        port_groth16.compute_h(mt, dt, *ta) if op == "compute_h" else getattr(dt, op)(ta[0])))
+    return kind, got, want
+
+
+@pytest.mark.parametrize("op", OPS + ["compute_h"])
+def test_new_domains_match_jax_limb_for_limb(new_case, op):
+    kind, got, want = new_case
+    if kind == "ArithmeticSequenceDomain" and op in ("divide_by_z_on_coset", "compute_h"):
+        assert got[op] is want[op] is ValueError  # x_0 = 0 lies on every coset
+        return
+    np.testing.assert_array_equal(got[op], want[op])
+
+
+def _picked(select, F, n):
+    try:
+        d = select(F, n)
+    except ValueError:
+        return "ValueError"
+    return type(d).__name__, d.m if hasattr(d, "m") else d.n
+
+
+GRIDS = {
+    # MNT4753's Fr: 2-adicity 30, no small subgroup
+    "MNT4753": [2, 3, 5, 6, 7, 8, 12, 100, 1000, 1023, 1024, 1025, 3 << 13, 5 << 14,
+                (1 << 20) + 1, (1 << 20) + 3, 3 << 19, 1 << 30, 1 << 31],
+    # MNT6753's Fr: 2-adicity 15 and the subgroup 5^2
+    "MNT6753": [2, 3, 7, 10, 12, 24, 25, 100, 125, 1000, 3 << 13, 1 << 15, (1 << 15) + 1,
+                1 << 16, 25 << 15, 5 << 16, 1 << 17],
+}
+
+
+@pytest.mark.parametrize("curve", sorted(GRIDS))
+def test_domain_selection_matches_jax(curve):
+    """get_evaluation_domain and get_domain_of_min_size pick the JAX
+    package's class and size (or both raise), and best_mixed_domain_size
+    agrees, over a grid that reaches every branch of the selection."""
+    jmod, tmod = {"MNT4753": (jax_mnt4753, mnt4753), "MNT6753": (jax_mnt6753, mnt6753)}[curve]
+    Fj, Ft = jmod.get().Fr, tmod.get("cpu").Fr
+    for n in GRIDS[curve]:
+        assert _picked(port_fft.get_evaluation_domain, Ft, n) == _picked(
+            jax_fft.get_evaluation_domain, Fj, n), n
+        assert _picked(port_fft.get_domain_of_min_size, Ft, n) == _picked(
+            jax_fft.get_domain_of_min_size, Fj, n), n
+        assert port_fft.best_mixed_domain_size(Ft, n) == jax_fft.best_mixed_domain_size(Fj, n), n
+    with pytest.raises(ValueError):
+        port_fft.get_evaluation_domain(Ft, 1)

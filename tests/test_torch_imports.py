@@ -25,7 +25,8 @@ MODULES = sorted(
 def test_every_module_is_listed():
     for name in ("cli", "convert", "ops.cuda_field", "ops.cuda_group", "ops.msm", "ops.fft",
                  "ops._build", "proof_systems.groth16", "host.curves", "io.serialization",
-                 "models.mnt4753", "models.mnt6753", "ops.towers", "utils.profiling"):
+                 "models.mnt4753", "models.mnt6753", "ops.towers", "utils.profiling",
+                 "ops.sequence_domains"):
         assert f"{port.__name__}.{name}" in MODULES
 
 

@@ -52,7 +52,7 @@ def test_device_reader_equals_numpy_reader_on_the_fixtures(curve, chunk):
     assert params.B2[0].shape == (DEG[curve], 24, params.m + 1)
     path = TESTDATA / f"{curve}-3.input"
     want = ser.read_input(path, params.d, params.m)
-    got = ser.DeviceReader("cpu", chunk_bytes=chunk, buffers=3).read_input(path, params.d, params.m)
+    got = ser.DeviceReader("cpu", chunk_bytes=chunk).read_input(path, params.d, params.m)
     for k in ("w", "ca", "cb", "cc", "r"):
         _same(getattr(got, k), getattr(want, k))
     assert got.r.shape == (24, 1)
@@ -91,21 +91,15 @@ def test_short_and_long_files_raise_in_both_readers(tmp_path, kind, change, mess
     path = tmp_path / kind
     path.write_bytes(change((TESTDATA / f"MNT4753-3.{kind}").read_bytes()))
     dev = ser.DeviceReader("cpu", chunk_bytes=40)
-    if kind == "params":
-        read_numpy, read_dev = (lambda: ser.read_params(path, 2)), (lambda: dev.read_params(path, 2))
-    else:
-        read_numpy = lambda: ser.read_input(path, 7, 10)  # noqa: E731 (the fixture's d, m)
-        read_dev = lambda: dev.read_input(path, 7, 10)  # noqa: E731
+    args = (path, 2) if kind == "params" else (path, 7, 10)  # G2 degree; the fixture's d, m
     with pytest.raises(ValueError, match=message):
-        read_dev()
+        getattr(dev, f"read_{kind}")(*args)
     if kind == "params" and len(path.read_bytes()) < ser.HEADER_BYTES:
         return  # the numpy reader's struct.error: no header to read
     with pytest.raises(ValueError, match=message):
-        read_numpy()
+        getattr(ser, f"read_{kind}")(*args)
 
 
-def test_device_reader_refuses_bad_arguments():
+def test_device_reader_refuses_a_chunk_of_no_bytes():
     with pytest.raises(ValueError):
         ser.DeviceReader("cpu", chunk_bytes=0)
-    with pytest.raises(ValueError):
-        ser.DeviceReader("cpu", buffers=0)

@@ -5,9 +5,14 @@ same fixture, which is what the JAX package itself is held to
 (tests/test_e2e.py).  The fixture is read once with each package's reader
 and both must give the same tensors (``convert``).  MNT4753 is proved
 through ``prove_files``, MNT6753 through the command line's ``main`` with
-``--device cpu`` on the committed fixture."""
+``--device cpu`` on the committed fixture.  MNT4753 is also proved through
+``prove_files`` at d + 1 = 12 (a step radix-2 domain) and 7 (a geometric
+sequence domain), which tools/oracle.py does not serve: there the proof
+bytes are built here, with the oracle's group law, from the quotient H that
+exact interpolation on the domain's points gives."""
 
 import hashlib
+import io
 from pathlib import Path
 
 import numpy as np
@@ -184,3 +189,112 @@ def test_mnt6753_cli_proof_points_are_on_their_curves(cli_run6):
 def test_mnt6753_writer_encodes_identity_as_zeros():
     z1, z3 = np.zeros(24, np.int32), np.zeros((3, 24), np.int32)
     assert port_ser.write_proof(None, (z1, z1, z1), (z3, z3, z3), (z1, z1, z1)) == b"\x00" * 960
+
+
+# ---- MNT4753 on a step radix-2 and on a geometric sequence domain ---------------
+@pytest.fixture(scope="module")
+def base4():
+    return orc.generate_fixture("MNT4753", LOG2D, seed=11)
+
+
+def _sized(base, n):
+    """The base fixture's points and scalars tiled to d + 1 = n (m = n + 2,
+    as the oracle's fixtures have it), with cc = ca * cb on the domain."""
+    cur, params, inputs = base
+    tile = lambda xs, count: [xs[i % len(xs)] for i in range(count)]
+    d, m, p = n - 1, n + 2, cur.fr_spec.p
+    P = {"d": d, "m": m, "A": tile(params["A"], m + 1), "B1": tile(params["B1"], m + 1),
+         "B2": tile(params["B2"], m + 1), "L": tile(params["L"], m - 1), "H": tile(params["H"], d)}
+    ca, cb = tile(inputs["ca"], n), tile(inputs["cb"][::-1], n)
+    I = {"w": tile(inputs["w"], m + 1), "ca": ca, "cb": cb,
+         "cc": [a * b % p for a, b in zip(ca, cb)], "r": inputs["r"]}
+    return P, I
+
+
+def _domain_points(spec, kind, n):
+    """The domain's points from the field's roots, independently of the
+    port's classes: step 2^k + 2^r is [w^(2i), i < 2^k] + [w z^j, j < 2^r]
+    with w a 2^(k+1)-th and z a 2^r-th root of unity; geometric is [2^i]."""
+    p = spec.p
+    if kind == "GeometricSequenceDomain":
+        return [pow(2, i, p) for i in range(n)]
+    big = 1 << (n.bit_length() - 1)
+    w, z = spec.get_root_of_unity(2 * big), spec.get_root_of_unity(n - big)
+    return [pow(w, 2 * i, p) for i in range(big)] + [w * pow(z, j, p) % p for j in range(n - big)]
+
+
+def _poly_mul(a, b, p):
+    out = [0] * (len(a) + len(b) - 1)
+    for i, x in enumerate(a):
+        for j, y in enumerate(b):
+            out[i + j] = (out[i + j] + x * y) % p
+    return out
+
+
+def _exact_h(points, ca, cb, cc, p):
+    """H = (A B - C) / Z, A, B, C interpolating ca, cb, cc on the points and
+    Z = prod (x - x_i); n coefficients (the top one zero)."""
+    n = len(points)
+    Z = [1]
+    for x in points:
+        Z = _poly_mul(Z, [-x % p, 1], p)
+
+    def interpolate(vals):
+        out = [0] * n
+        for j, xj in enumerate(points):
+            basis, denom = [1], 1
+            for k, xk in enumerate(points):
+                if k != j:
+                    basis = _poly_mul(basis, [-xk % p, 1], p)
+                    denom = denom * (xj - xk) % p
+            c = vals[j] * pow(denom, -1, p) % p
+            out = [(o + c * b) % p for o, b in zip(out, basis)]
+        return out
+
+    num = _poly_mul(interpolate(ca), interpolate(cb), p)
+    for i, c in enumerate(interpolate(cc)):
+        num[i] = (num[i] - c) % p
+    h = [0] * (len(num) - n)
+    for i in range(len(h) - 1, -1, -1):  # long division by the monic Z
+        h[i] = num[i + n]
+        for k in range(n + 1):
+            num[i + k] = (num[i + k] - h[i] * Z[k]) % p
+    assert not any(num), "Z does not divide A B - C"
+    return h + [0] * (n - len(h))
+
+
+def _proof_bytes(cur, params, inputs, h):
+    """tools/oracle.py's ``prove`` with the quotient ``h`` given."""
+    d, w = params["d"], inputs["w"]
+    At = cur.g1.msm(w, params["A"])
+    Bt1 = cur.g1.msm(w, params["B1"])
+    Bt2 = cur.g2.msm(w, params["B2"])
+    Ht = cur.g1.msm(h[:d], params["H"])
+    Lt = cur.g1.msm(w[2:], params["L"])
+    C = cur.g1.add(cur.g1.add(Ht, Lt), cur.g1.mul(inputs["r"], Bt1))
+    buf = io.BytesIO()
+    orc.write_g1(buf, cur, At)
+    orc.write_g2(buf, cur, Bt2)
+    orc.write_g1(buf, cur, C)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("n, kind", [(12, "StepRadix2Domain"), (7, "GeometricSequenceDomain")])
+def test_prove_files_byte_exact_on_step_and_sequence_domains(base4, tmp_path, n, kind):
+    from snark_challenge_prover_tpu_torch.ops.fft import get_evaluation_domain
+
+    cur = base4[0]
+    model = mnt4753.get("cpu")
+    assert type(get_evaluation_domain(model.Fr, n)).__name__ == kind
+    params, inputs = _sized(base4, n)
+    orc.write_params_file(tmp_path / "params", cur, params)
+    orc.write_input_file(tmp_path / "input", cur, inputs)
+    points = _domain_points(cur.fr_spec, kind, n)
+    assert len(set(points)) == n
+    h = _exact_h(points, inputs["ca"], inputs["cb"], inputs["cc"], cur.fr_spec.p)
+    want = _proof_bytes(cur, params, inputs, h)
+    prover = ChallengeProver(model, msm_window=4, verbose=False)
+    got = prover.prove_files(tmp_path / "params", tmp_path / "input", tmp_path / "proof")
+    assert (tmp_path / "proof").read_bytes() == got and len(got) == 768
+    assert hashlib.sha256(got).hexdigest() == hashlib.sha256(want).hexdigest(), (
+        f"proof bytes at d + 1 = {n} ({kind}) differ from the exact-integer ones")
