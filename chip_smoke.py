@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--sizes4 1000,1048576,1572864]
-                          [--sizes6 24576,32768,819200] [--seed 1]
+                          [--sizes6 24576,32768,819200]
+                          [--keygen4 1048576] [--keygen6 32768] [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
 MNT4753 and for MNT6753 in turn: holds every kernel against its plain
@@ -24,6 +25,17 @@ doublings, the doublings a launch); every kernel is then compared with its
 plain version again, and timed, at the lane counts of the largest prove of
 its curve, the doublings at every (lanes, doublings) of the curve's proves
 and in bulk.
+
+Then each curve generates its keys (``keygen``: the command line's
+``generate_for_curve`` on the card, MNT4753 at d + 1 = ``--keygen4``,
+MNT6753 at ``--keygen6``, the reference's defaults): its launch counts,
+phase times and peak memory; its queries checked against exact host
+multiplication (the first and last entries, 256 random ones and every
+identity, with the scalars replayed from the seed on the host); the
+generated files proved through ``prove_files`` and the proof held to bytes
+that the host computes without any MSM; and every kernel compared with its
+plain version, and timed, at the keygen's largest and most frequent lane
+counts.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -56,6 +68,7 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from snark_challenge_prover_tpu_torch import cli  # noqa: E402
+from snark_challenge_prover_tpu_torch.cli_generate_parameters import generate_for_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.host.curves import host_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.io import serialization as ser  # noqa: E402
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753  # noqa: E402
@@ -64,6 +77,11 @@ from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa
 from snark_challenge_prover_tpu_torch.ops.fft import get_evaluation_domain  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, compute_h)
+from snark_challenge_prover_tpu_torch.reductions.r1cs_to_qap import (  # noqa: E402
+    instance_map_with_evaluation)
+from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
+    generate_r1cs_example_with_field_input)
+from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.bigint import ints_to_words, words_to_ints  # noqa: E402
 
 TESTDATA = REPO / "snark_challenge_prover_tpu_torch" / "testdata"
@@ -372,7 +390,8 @@ def check_dbl_at_path_shapes(model, curve, strip, name, shapes, errs):
     return rows
 
 
-def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs):
+def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs,
+                                 phase: str = "kernels_at_path_shapes"):
     """Every kernel of the model's path against its plain version, and
     timed, at the lane counts the main path launched it with
     (``path_lanes``: kernel -> {lanes: launches}, read from the wrappers
@@ -435,7 +454,7 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
                     "lanes", "path_launches", "ms", "plain_ms", "bound_ms", "bound_by")}
             del got, args
             torch.cuda.empty_cache()
-    emit("kernels_at_path_shapes", curve=model.name, compared=rows)
+    emit(phase, curve=model.name, compared=rows)
     return report
 
 
@@ -756,9 +775,215 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     return launches, path_lanes
 
 
+# --------------------------------------------------------------------------
+# phase: keygen
+# --------------------------------------------------------------------------
+class HostComb:
+    """s P for many scalars s and one base P, by exact integers: the table
+    d 2^(4j) P (d < 16, j < 189) once, affine, then per scalar one mixed
+    addition a nonzero 4-bit digit in Jacobian coordinates (X / Z^2,
+    Y / Z^3), one inverse at the end."""
+
+    def __init__(self, group, P, bits: int = 753):
+        self.group, self.F = group, group.F
+        self.rows = []
+        for _ in range((bits + 3) // 4):
+            row = [None, P]
+            for _ in range(14):
+                row.append(group.add(row[-1], P))
+            self.rows.append(row)
+            P = group.add(row[8], row[8])  # 16 P
+    def _affine(self, J):
+        if J is None:
+            return None
+        F = self.F
+        zi = F.inv(J[2])
+        zi2 = F.mul(zi, zi)
+        return (F.mul(J[0], zi2), F.mul(J[1], F.mul(zi2, zi)))
+
+    def _madd(self, J, Q):
+        """Jacobian J plus affine Q (madd-2007-bl); where J and Q share x
+        (a doubling or the identity) the affine law takes over."""
+        F = self.F
+        if J is None:
+            return (Q[0], Q[1], F.one)
+        X1, Y1, Z1 = J
+        z1z1 = F.mul(Z1, Z1)
+        h = F.sub(F.mul(Q[0], z1z1), X1)
+        rr = F.sub(F.mul(Q[1], F.mul(Z1, z1z1)), Y1)
+        if F.is_zero(h):
+            P = self.group.add(self._affine(J), Q)
+            return None if P is None else (P[0], P[1], F.one)
+        hh = F.mul(h, h)
+        hhh = F.mul(h, hh)
+        v = F.mul(X1, hh)
+        X3 = F.sub(F.sub(F.mul(rr, rr), hhh), F.add(v, v))
+        Y3 = F.sub(F.mul(rr, F.sub(v, X3)), F.mul(Y1, hhh))
+        return (X3, Y3, F.mul(Z1, h))
+
+    def mul(self, s: int):
+        J, j = None, 0
+        while s:
+            if s & 15:
+                J = self._madd(J, self.rows[j][s & 15])
+            s >>= 4
+            j += 1
+        return self._affine(J)
+
+
+def host_keys(model, n: int, seed: int):
+    """The generator's secrets and scalars for d + 1 = n, replayed from the
+    seed on the host: the example, the A/B swap, t, alpha, beta, delta, the
+    instance map and g1_scalar, in the generator's order of draws."""
+    rng = random.Random(seed)
+    r = model.Fr.p
+    ex = generate_r1cs_example_with_field_input(r, n - 2, 1, rng)
+    cs = ex.constraint_system
+    cs.swap_AB_if_beneficial()
+    t, alpha, beta, delta = (rng.randrange(1, r) for _ in range(4))
+    inst = instance_map_with_evaluation(cs, t, model.Fr)
+    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "inst": inst, "alpha": alpha,
+            "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
+
+
+def read_point(raw: np.ndarray, off: int, deg: int, spec):
+    """One affine point of the params file at byte ``off`` (None for zeros)."""
+    vals = [spec.from_mont(int.from_bytes(raw[off + 96 * i : off + 96 * (i + 1)].tobytes(),
+                                          "little")) for i in range(2 * deg)]
+    if not any(vals):
+        return None
+    return (vals[0], vals[1]) if deg == 1 else (tuple(vals[:deg]), tuple(vals[deg:]))
+
+
+def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int):
+    """A, B1, B2, L and H of the generated params file against exact
+    multiplication: the first and last entries, 256 random ones and every
+    identity, and the identities' positions against the zero scalars."""
+    r, deg = model.Fr.p, model.g2_deg
+    inst, d, m = keys["inst"], n - 1, n
+    dinv = pow(keys["delta"], -1, r)
+    abc = [(keys["beta"] * a + keys["alpha"] * b + c) % r
+           for a, b, c in zip(inst.At, inst.Bt, inst.Ct)]
+    zdt = inst.Zt * dinv % r
+    g1s = keys["g1_scalar"]
+    queries = [("A", inst.At, 1), ("B1", inst.Bt, 1), ("B2", inst.Bt, deg),
+               ("L", [v * dinv % r for v in abc[2:]], 1), ("H", [zdt * h % r for h in inst.Ht[:d]], 1)]
+    combs = {1: HostComb(hc.g1, hc.g1_gen), deg: HostComb(hc.g2, hc.g2_gen)}
+    raw = np.memmap(params_path, dtype=np.uint8, mode="r")
+    if struct.unpack("<QQ", raw[:16].tobytes()) != (d, m):
+        raise AssertionError(f"{hc.name} keygen: params header is not (d, m) = ({d}, {m})")
+    off, rng, checked = 16, random.Random(seed), {}
+    for key, scalars, k in queries:
+        size = 2 * k * 96
+        block = raw[off : off + len(scalars) * size].reshape(len(scalars), size)
+        zero_rows = np.flatnonzero(~block.any(axis=1)).tolist()
+        zero_scalars = [i for i, s in enumerate(scalars) if s == 0]
+        if zero_rows != zero_scalars:
+            raise AssertionError(f"{hc.name} keygen {key}: identities at {zero_rows[:8]}, "
+                                 f"zero scalars at {zero_scalars[:8]}")
+        picks = sorted({0, len(scalars) - 1, *zero_scalars,
+                        *rng.sample(range(len(scalars)), min(256, len(scalars)))})
+        for i in picks:
+            s = scalars[i] if k > 1 else scalars[i] * g1s % r  # G1 queries: s times g1_scalar G
+            if read_point(raw, off + i * size, k, hc.fq_spec) != combs[k].mul(s):
+                raise AssertionError(f"{hc.name} keygen {key}[{i}] differs from exact multiplication")
+        checked[key] = {"entries": len(picks), "identities": len(zero_scalars)}
+        off += len(scalars) * size
+    if off != raw.size:
+        raise AssertionError(f"{hc.name} keygen: params file of {raw.size} bytes, {off} expected")
+    return checked
+
+
+def expected_keygen_proof(model, hc, keys: dict, input_path: Path) -> bytes:
+    """The proof of the generated files by exact integers, with no MSM:
+    A = A(t) g1b, B = B(t) G2 and C = ((A(t) B(t) - C(t)) / delta + sum_{i>=2}
+    w_i L_i + r B(t)) g1b, with g1b = g1_scalar G1, X(t) = sum_i w_i X_i(t),
+    and h(t) Z(t) = A(t) B(t) - C(t) standing for the H query's sum."""
+    rr, inst, w = model.Fr.p, keys["inst"], keys["w"]
+    dinv = pow(keys["delta"], -1, rr)
+    At, Bt, Ct = (sum(wi * v for wi, v in zip(w, vals)) % rr for vals in (inst.At, inst.Bt, inst.Ct))
+    Lsum = sum(wi * ((keys["beta"] * a + keys["alpha"] * b + c) % rr) for wi, a, b, c in
+               zip(w[2:], inst.At[2:], inst.Bt[2:], inst.Ct[2:])) * dinv % rr
+    raw = input_path.read_bytes()
+    r_blind = model.Fr.spec.from_mont(int.from_bytes(raw[-96:], "little"))
+    c_scalar = ((At * Bt - Ct) * dinv + Lsum + r_blind * Bt) % rr
+    g1s, fq = keys["g1_scalar"], hc.fq_spec
+    A = hc.g1.mul(At * g1s % rr, hc.g1_gen)
+    B = hc.g2.mul(Bt, hc.g2_gen)
+    C = hc.g1.mul(c_scalar * g1s % rr, hc.g1_gen)
+
+    def g1(P):
+        return b"\x00" * 192 if P is None else mont_bytes(fq, P[0]) + mont_bytes(fq, P[1])
+
+    B_bytes = (b"\x00" * (192 * model.g2_deg) if B is None
+               else b"".join(mont_bytes(fq, c) for c in B[0] + B[1]))
+    return g1(A) + B_bytes + g1(C)
+
+
+def keygen(model, hc, workdir: Path, n: int, seed: int):
+    """The key generation path at d + 1 = n (m = n): ``generate_for_curve``
+    on the card, with the launch counts set to 0 just before and read just
+    after; the queries against exact multiplication; the generated files
+    proved through ``prove_files`` and the proof against exact-integer
+    bytes.  Returns the keygen's launch and lane counts."""
+    prof = Profiler(model.device, verbose=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_field.launches.clear()
+    cuda_field.launch_lanes.clear()
+    t0 = time.perf_counter()
+    params_path, input_path = generate_for_curve(model, n.bit_length() - 1, random.Random(seed),
+                                                 workdir, prof)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = dict(cuda_field.launches)
+    path_lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {hc.name} keygen path: {missing}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    keys = host_keys(model, n, seed)
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = check_queries(model, hc, params_path, keys, n, seed)
+    t_checks = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    want = expected_keygen_proof(model, hc, keys, input_path)
+    t_expected = time.perf_counter() - t0
+    del keys
+    out_path = workdir / f"{hc.name}-keygen.output"
+    prover = ChallengeProver(model, verbose=False)
+    t0 = time.perf_counter()
+    got = prover.prove_files(str(params_path), str(input_path), str(out_path))
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    got_sha, want_sha = hashlib.sha256(got).hexdigest(), hashlib.sha256(want).hexdigest()
+    if got != want:
+        raise AssertionError(f"{hc.name} proof of the generated files at d + 1 = {n} differs "
+                             f"from the host's: {got_sha} != {want_sha}")
+    sizes = {"params": params_path.stat().st_size, "input": input_path.stat().st_size}
+    for p in (params_path, input_path, out_path):
+        p.unlink()
+    dbl = {k: v for k, v in path_lanes.items() if k.startswith("ec_dbl")}
+    emit("keygen", curve=hc.name, d=n - 1, m=n, bytes=sizes, queries_checked=checked,
+         proof_sha256=got_sha, proof_equal=True,
+         seconds={"generate": t_gen, **dict(prof.cumulative)},
+         host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         prove_seconds=t_prove, peak_device_bytes=peak, launches=launches,
+         lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
+                for k, v in path_lanes.items()},
+         largest_doubling={k: max(v, key=lambda s: (s[0], s[1])) for k, v in dbl.items()})
+    return launches, path_lanes
+
+
 def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     """All phases of one curve.  Returns the launch counts of its largest
-    prove and the kernels' numbers at that prove's lane counts."""
+    prove and the kernels' numbers at that prove's lane counts, then the
+    same for its key generation."""
     model = MODELS[curve].get("cuda")
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
@@ -776,7 +1001,17 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
             for shape, count in lanes[name].items():
                 path_lanes[name].setdefault(shape, count)
     report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs)
-    return launches, report
+    torch.cuda.empty_cache()
+
+    kg_launches, kg_lanes = keygen(model, hc, workdir, args.keygen[curve], args.seed)
+    torch.cuda.empty_cache()
+    for name in (k for k in kg_lanes if k.startswith("ec_dbl")):  # the largest and commonest
+        seen = kg_lanes[name]
+        picks = [max(seen, key=lambda s: (s[0] * s[1], s)), max(seen, key=lambda s: (seen[s], s))]
+        kg_lanes[name] = {s: seen[s] for s in picks}
+    kg_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, kg_lanes, errs,
+                                             phase="kernels_at_keygen_shapes")
+    return launches, report, kg_launches, kg_report
 
 
 def main(argv=None) -> int:
@@ -789,6 +1024,12 @@ def main(argv=None) -> int:
                     help="d + 1 of the MNT6753 full-size proves (the challenge's size is "
                          "32768; 24576 = 2^14 + 2^13 takes a step domain; 819200 = 25 * 2^15 "
                          "is the largest domain of its scalar field)")
+    ap.add_argument("--keygen4", type=int, default=1 << 20,
+                    help="d + 1 of the MNT4753 key generation (a power of two; the "
+                         "reference's default is 2^20)")
+    ap.add_argument("--keygen6", type=int, default=1 << 15,
+                    help="d + 1 of the MNT6753 key generation (a power of two; the "
+                         "reference's default is 2^15)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
@@ -800,6 +1041,9 @@ def main(argv=None) -> int:
              "MNT6753": sorted(int(v) for v in args.sizes6.split(","))}
     if any(n < 8 for v in sizes.values() for n in v):
         raise SystemExit("full-size proves need d + 1 >= 8")
+    args.keygen = {"MNT4753": args.keygen4, "MNT6753": args.keygen6}
+    if any(n < 8 or n & (n - 1) for n in args.keygen.values()):
+        raise SystemExit("key generation needs d + 1 a power of two, at least 8")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -825,17 +1069,21 @@ def main(argv=None) -> int:
 
     # one entry per kernel: its numbers from the first curve whose path runs it,
     # and under "also" those of a later curve that runs it with other moduli and lanes
+    # and under "keygen" its numbers on each curve's key generation path
     kernels = {}
-    for curve, (launches, report) in results.items():
+    for curve, (launches, report, kg_launches, kg_report) in results.items():
         for name, r in report.items():
             entry = {"curve": curve, "launches": launches[name], **r}
             if name in kernels:
                 kernels[name].setdefault("also", []).append(entry)
-                continue
-            source, replaces, _, _ = KERNELS[name]
-            kernels[name] = {"name": name, "route": "cuda", "source": source,
-                             "replaces": replaces, "max_abs_err": errs[name],
-                             "library_ms": None, **entry}
+            else:
+                source, replaces, _, _ = KERNELS[name]
+                kernels[name] = {"name": name, "route": "cuda", "source": source,
+                                 "replaces": replaces, "max_abs_err": errs[name],
+                                 "library_ms": None, **entry}
+            kernels[name].setdefault("keygen", []).append(
+                {"curve": curve, "d_plus_1": args.keygen[curve], "launches": kg_launches[name],
+                 **kg_report[name]})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

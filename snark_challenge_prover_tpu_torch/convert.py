@@ -3,7 +3,8 @@
 The JAX package's readers return 16-bit limb planes (``uint32[48, N]``,
 ``(deg, 48, N)`` for G2 coordinates); the port works on 32-bit words
 (``int32[24, N]``).  Both are the same little-endian bytes, so the
-conversion is a regrouping and is exact in both directions.
+conversion is a regrouping and is exact in both directions.  Constraint
+systems and proving keys carry over with the same terms and points.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import torch
 
 from .io.serialization import Groth16Input, Groth16Params
 from .ops.limbs import planes16_to_words, to_planes16
+from .proof_systems.groth16_full import ProvingKey
+from .relations.r1cs import LinearCombination, R1CSConstraint, R1CSConstraintSystem
 
 
 def _words(planes) -> np.ndarray:
@@ -47,3 +50,24 @@ def planes_from_port(x: torch.Tensor) -> np.ndarray:
         return to_planes16(x)
     return np.stack([to_planes16(c) for c in x])
 
+
+def r1cs_from_reference(ref) -> R1CSConstraintSystem:
+    """The JAX package's constraint system -> the port's (the same terms)."""
+    cs = R1CSConstraintSystem(ref.p, ref.primary_input_size, ref.auxiliary_input_size)
+    for c in ref.constraints:
+        cs.add_constraint(R1CSConstraint(LinearCombination(c.a.terms), LinearCombination(c.b.terms),
+                                         LinearCombination(c.c.terms), c.is_square))
+    return cs
+
+
+def proving_key_from_jax(ref, device) -> ProvingKey:
+    """The JAX package's ``ProvingKey`` (queries as affine 16-bit limb
+    planes, the identity stored as (0, 0)) -> the port's, its queries as
+    word tensors on ``device``; the single points are host integers in both."""
+    pair = lambda xy: (tensor_from_planes(xy[0], device), tensor_from_planes(xy[1], device))
+    return ProvingKey(
+        curve=ref.curve, alpha_g1=ref.alpha_g1, beta_g1=ref.beta_g1, beta_g2=ref.beta_g2,
+        delta_g1=ref.delta_g1, delta_g2=ref.delta_g2, A_query=pair(ref.A_query),
+        B_query_g2=pair(ref.B_query_g2), B_query_g1=pair(ref.B_query_g1),
+        H_query=pair(ref.H_query), L_query=pair(ref.L_query),
+        constraint_system=r1cs_from_reference(ref.constraint_system))

@@ -1,7 +1,8 @@
 """Exact-integer host arithmetic for the MNT4753 and MNT6753 curves.
 
-The O(1) tail of a proof (C = Ht + Lt + r * Bt1, the affine conversion)
-and every independent check of the device code run on Python ints.
+The O(1) tail of a proof (C = Ht + Lt + r * Bt1, the affine conversion),
+the key generator's single points and pairing, and every independent
+check of the device code run on Python ints.
 
 Group elements are affine tuples; None is the identity:
   G1: (x, y) ints;  G2: (x, y) with x, y tuples of 2 (MNT4753) or 3
@@ -26,6 +27,13 @@ class HostExt:
         self.nr = nr
         self.zero = (0,) * deg if deg > 1 else 0
         self.one = ((1,) + (0,) * (deg - 1)) if deg > 1 else 1
+
+    def components(self, a) -> list:
+        return list(a) if self.deg > 1 else [a]
+
+    def from_components(self, comps):
+        comps = [c % self.p for c in comps]
+        return tuple(comps) if self.deg > 1 else comps[0]
 
     def add(self, a, b):
         if self.deg == 1:

@@ -26,6 +26,11 @@ count)`` for G2 coordinates; the device layout of ``ops/limbs.py``):
     read, and unpacks there with views and one copy a block.  On a CUDA
     model the prover reads through it and only through it: a failure to pin,
     copy or unpack raises.
+
+The key generator writes both files from word tensors on its device
+(``write_params`` / ``write_input``): the words are the wire format's
+bytes, so a block is interleaved on the device and copied out a chunk at a
+time.
 """
 
 from __future__ import annotations
@@ -316,3 +321,55 @@ def write_proof(path, A, B, C) -> bytes:
         with open(path, "wb") as f:
             f.write(data)
     return data
+
+
+# points a chunk of the writers: 2^18 G1 points are 48 MB of file
+_WRITE_POINTS = 1 << 18
+
+
+def _write_rows(f, rows: torch.Tensor):
+    """A contiguous int32 tensor's bytes, brought to the host."""
+    f.write(rows.cpu().numpy().tobytes())
+
+
+def write_g1_block(f, x: torch.Tensor, y: torch.Tensor):
+    """Affine G1 points (x, y), each (24, count) Montgomery words on any
+    device, x then y a point; an identity stored as (0, 0) gives 192 zero
+    bytes.  The interleaving runs on the words' device, a chunk at a time."""
+    for i in range(0, x.shape[-1], _WRITE_POINTS):
+        part = torch.stack([x[:, i : i + _WRITE_POINTS], y[:, i : i + _WRITE_POINTS]])
+        _write_rows(f, part.permute(2, 0, 1).contiguous())  # (count, 2, 24)
+
+
+def write_g2_block(f, x: torch.Tensor, y: torch.Tensor):
+    """Affine G2 points, x and y each (deg, 24, count): per point x's
+    components, then y's."""
+    for i in range(0, x.shape[-1], _WRITE_POINTS):
+        part = torch.stack([x[..., i : i + _WRITE_POINTS], y[..., i : i + _WRITE_POINTS]])
+        _write_rows(f, part.permute(3, 0, 1, 2).contiguous())  # (count, 2, deg, 24)
+
+
+def write_params(path, d: int, m: int, A, B1, B2, L, H):
+    """The params file (main.cpp:50-61 layout) from affine queries (x, y)
+    of word tensors (identities stored as (0, 0)): A and B1 of m + 1
+    points, B2 of m + 1 G2 points, L of m - 1 and H of d."""
+    counts = {"A": (A, m + 1), "B1": (B1, m + 1), "B2": (B2, m + 1), "L": (L, m - 1), "H": (H, d)}
+    for key, (q, count) in counts.items():
+        if q[0].shape[-1] != count:
+            raise ValueError(f"params {key}: {q[0].shape[-1]} points, {count} expected")
+    with open(path, "wb") as f:
+        f.write(struct.pack("<QQ", d, m))
+        write_g1_block(f, *A)
+        write_g1_block(f, *B1)
+        write_g2_block(f, *B2)
+        write_g1_block(f, *L)
+        write_g1_block(f, *H)
+
+
+def write_input(path, w: torch.Tensor, ca: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor,
+                r: torch.Tensor):
+    """The input file (main.cpp:63-83 layout) from Montgomery word tensors
+    (24, count) on any device: w (m + 1), ca, cb, cc (d + 1 each), r (1)."""
+    with open(path, "wb") as f:
+        for block in (w, ca, cb, cc, r):
+            _write_rows(f, block.reshape(N_WORDS, -1).t().contiguous())

@@ -81,6 +81,18 @@ class MNT4753:
         self.G2 = Curve(self.Fq2, a2, b2, self.device, "MNT4753.G2", G2_ADD_KERNEL,
                         G2_DBL_KERNEL)
 
+    def g1_generator(self):
+        """The G1 generator, projective with Z = 1 and batch () (Montgomery form)."""
+        Fq = self.Fq
+        return (Fq.const(G1_ONE_X), Fq.const(G1_ONE_Y), Fq.const(1))
+
+    def g2_generator(self):
+        """The G2 generator, projective with Z = 1 and batch ()."""
+        Fq = self.Fq
+        return (torch.stack([Fq.const(c) for c in (G2_ONE_X0, G2_ONE_X1)]),
+                torch.stack([Fq.const(c) for c in (G2_ONE_Y0, G2_ONE_Y1)]),
+                torch.stack([Fq.const(1)] + [Fq.const(0)] * 1))
+
 
 def get(device="cuda") -> MNT4753:
     """The model on ``device``: the GPU unless the caller asks for the CPU."""

@@ -7,8 +7,11 @@ Counterpart of ``Radix2Domain``, ``ExtendedRadix2Domain``,
 package's ``ops/fft.py`` (libfqfft's basic_radix2_domain,
 extended_radix2_domain, step_radix2_domain, the small-subgroup branch of
 its basic domain and get_evaluation_domain.tcc): FFT, iFFT, cosetFFT,
-icosetFFT and divide_by_Z_on_coset.  The sequence domains, the last
-fallbacks of the selection, are in ``ops/sequence_domains.py``.  Data is
+icosetFFT and divide_by_Z_on_coset, and the key generator's host helpers
+(get_domain_element, compute_vanishing_polynomial, add_poly_Z and
+evaluate_all_lagrange_polynomials, exact integers, every inverse through
+``batch_inverse``).  The sequence domains, the last fallbacks of the
+selection, are in ``ops/sequence_domains.py``.  Data is
 one ``(24, n)`` tensor; each butterfly stage is a reshape, one full-width
 Montgomery product and an add/sub.
 
@@ -97,7 +100,28 @@ class _Domain:
         return self.F.mul_const(a, self.F.const(zinv))
 
 
-class Radix2Domain(_Domain):
+class _SubgroupDomain(_Domain):
+    """A domain that is the whole subgroup of order n generated by omega:
+    the host helpers of the radix-2 and mixed-radix domains."""
+
+    def get_domain_element(self, i: int) -> int:
+        return pow(self.omega, i, self.F.p)
+
+    def compute_vanishing_polynomial(self, t: int) -> int:
+        """Z(t) = t^n - 1."""
+        return (pow(t, self.n, self.F.p) - 1) % self.F.p
+
+    def add_poly_Z(self, coeff: int, H: list):
+        """H += coeff * (x^n - 1)."""
+        p = self.F.p
+        H[self.n] = (H[self.n] + coeff) % p
+        H[0] = (H[0] - coeff) % p
+
+    def evaluate_all_lagrange_polynomials(self, t: int) -> list:
+        return subgroup_lagrange(self.F.p, self.n, self.omega, t)
+
+
+class Radix2Domain(_SubgroupDomain):
     """Size-n multiplicative subgroup domain, n = 2^k, with omega from the
     field's 2-adic root tower (field_utils.tcc:71-89)."""
 
@@ -132,7 +156,7 @@ class Radix2Domain(_Domain):
         return self.F.mul_const(out, self.n_inv_mont)
 
 
-class MixedRadixDomain(_Domain):
+class MixedRadixDomain(_SubgroupDomain):
     """Size-n multiplicative subgroup domain with n = 2^a * 5^b, b > 0: the
     small-subgroup capability of MNT6753's Fr (mnt6753_init.cpp:73-76,
     libfqfft aux.tcc:46-166).
@@ -267,6 +291,38 @@ class ExtendedRadix2Domain(_Domain):
         return torch.cat([F.mul_const(a[:, :sm], F.const(pow(z0, -1, p))),
                           F.mul_const(a[:, sm:], F.const(pow(z1, -1, p)))], dim=1)
 
+    # ---- host-side scalar helpers -----------------------------------------
+    def get_domain_element(self, i: int) -> int:
+        p = self.F.p
+        if i < self.small_m:
+            return pow(self.omega, i, p)
+        return self.shift * pow(self.omega, i - self.small_m, p) % p
+
+    def compute_vanishing_polynomial(self, t: int) -> int:
+        """Z(t) = (t^sm - 1)(t^sm - shift^sm)."""
+        p = self.F.p
+        tm = pow(t, self.small_m, p)
+        return (tm - 1) * (tm - self.shift_to_small_m) % p
+
+    def add_poly_Z(self, coeff: int, H: list):
+        """tcc:160-171: H += coeff * (x^sm - 1)(x^sm - shift^sm)."""
+        p, sm, s_sm = self.F.p, self.small_m, self.shift_to_small_m
+        H[self.m] = (H[self.m] + coeff) % p
+        H[sm] = (H[sm] - coeff * (s_sm + 1)) % p
+        H[0] = (H[0] + coeff * s_sm) % p
+
+    def evaluate_all_lagrange_polynomials(self, t: int) -> list:
+        """tcc:119-140: each half's subgroup basis, at t and at t / shift,
+        times the other half's vanishing polynomial over its value there."""
+        p, sm, s_sm = self.F.p, self.small_m, self.shift_to_small_m
+        T0 = subgroup_lagrange(p, sm, self.omega, t)
+        T1 = subgroup_lagrange(p, sm, self.omega, t * self.shift_inv % p)
+        t_sm = pow(t, sm, p)
+        inv_den = pow((s_sm - 1) % p, -1, p)
+        c0 = (t_sm - s_sm) * (-inv_den) % p
+        c1 = (t_sm - 1) * inv_den % p
+        return [v * c0 % p for v in T0] + [v * c1 % p for v in T1]
+
 
 def host_table(F: Fp, values) -> torch.Tensor:
     """Canonical host integers -> their Montgomery words, (24, len), on F's device."""
@@ -286,6 +342,23 @@ def batch_inverse(values, p: int) -> list:
         out[i] = inv * prefix[i] % p
         inv = inv * values[i] % p
     return out
+
+
+def subgroup_lagrange(p: int, n: int, omega: int, t: int) -> list:
+    """[L_i(t) for i < n] on the subgroup {omega^i} of order n:
+    L_i(t) = (t^n - 1) omega^i / (n (t - omega^i)), the n inverses by
+    Montgomery's trick; the indicator of t where t is a domain point
+    (basic_radix2_domain_aux.tcc:333)."""
+    t %= p
+    pts, x = [], 1
+    for _ in range(n):
+        pts.append(x)
+        x = x * omega % p
+    tn = pow(t, n, p)
+    if tn == 1:
+        return [int(x == t) for x in pts]
+    c = (tn - 1) * pow(n, -1, p) % p
+    return [c * x % p * v % p for x, v in zip(pts, batch_inverse([t - x for x in pts], p))]
 
 
 def _sum_rows(F: Fp, e: torch.Tensor) -> torch.Tensor:
@@ -398,6 +471,37 @@ class StepRadix2Domain(_Domain):
         p = self.F.p
         return (pow(t, self.big_m, p) - 1) * (
             pow(t, self.small_m, p) - pow(self.omega, self.small_m, p)) % p
+
+    def add_poly_Z(self, coeff: int, H: list):
+        """tcc:225-236: H += coeff * (x^bm - 1)(x^sm - omega^sm)."""
+        p = self.F.p
+        w_sm = pow(self.omega, self.small_m, p)
+        H[self.m] = (H[self.m] + coeff) % p
+        H[self.big_m] = (H[self.big_m] - coeff * w_sm) % p
+        H[self.small_m] = (H[self.small_m] - coeff) % p
+        H[0] = (H[0] + coeff * w_sm) % p
+
+    def evaluate_all_lagrange_polynomials(self, t: int) -> list:
+        """tcc:189-214: the big subgroup's basis at t times
+        (t^sm - omega^sm) / (x_i^sm - omega^sm), and the small subgroup's
+        at t / omega times (t^bm - 1) / (omega^bm - 1).  x_i^sm =
+        big_omega^(sm i) has order bm / sm, so one period of inverses is
+        tiled.  A small part of size 1 is the subgroup {1}, whose basis is
+        the constant 1 (the JAX package raises there, ``fft.py:587``)."""
+        p, bm, sm = self.F.p, self.big_m, self.small_m
+        w_sm = pow(self.omega, sm, p)
+        step = pow(self.big_omega, sm, p)
+        period, elt = [], 1
+        for _ in range(bm // sm):
+            period.append(elt - w_sm)
+            elt = elt * step % p
+        L0 = (pow(t, sm, p) - w_sm) % p
+        scale = [L0 * v % p for v in batch_inverse(period, p)]
+        big = subgroup_lagrange(p, bm, self.big_omega, t)
+        out = [v * scale[i % len(scale)] % p for i, v in enumerate(big)]
+        L1 = (pow(t, bm, p) - 1) * pow((pow(self.omega, bm, p) - 1) % p, -1, p) % p
+        small = subgroup_lagrange(p, sm, self.small_omega, t * pow(self.omega, -1, p) % p)
+        return out + [L1 * v % p for v in small]
 
 
 def get_evaluation_domain(F: Fp, n: int):

@@ -134,6 +134,47 @@ class Fp:
     def select(self, mask, a, b):
         return lb.select(mask, a, b)
 
+    # ---- exponentiation / inversion --------------------------------------
+    def pow_int(self, a, e: int):
+        """a^e for a Python-int exponent e >= 0: square and multiply,
+        most significant bit first, every product a ``mul``."""
+        if e < 0:
+            raise ValueError("pow_int takes an exponent >= 0")
+        if e == 0:
+            return self.ones(a.shape[1:])
+        out = a
+        for bit in bin(e)[3:]:
+            out = self.sqr(out)
+            if bit == "1":
+                out = self.mul(out, a)
+        return out
+
+    def inv(self, a):
+        """a^-1 by Fermat, a^(p - 2), elementwise; 0 maps to 0."""
+        return self.pow_int(a, self.p - 2)
+
+    def batch_inv(self, a):
+        """Elementwise inverse along the last axis by a product tree (the
+        libff batch_invert of multiexp.tcc:684, in log depth): pairwise
+        products level by level up to one element, one ``inv`` of it, and
+        back down, where the inverse of a pair's product times one member
+        is the inverse of the other; about 2 N products in 2 log2(N) + 1
+        launches and the inversion's.  Zero lanes map to zero."""
+        zero = self.is_zero(a)
+        x = self.select(zero, self.ones(a.shape[1:]), a)
+        levels = []  # (padded level, its length before padding)
+        while x.shape[-1] > 1:
+            n = x.shape[-1]
+            if n % 2:
+                x = torch.cat([x, self.ones(x.shape[1:-1] + (1,))], dim=-1)
+            levels.append((x, n))
+            x = self.mul(x[..., 0::2], x[..., 1::2])
+        inv = self.inv(x)
+        for lv, n in reversed(levels):
+            partner = torch.stack([lv[..., 1::2], lv[..., 0::2]], dim=-1)
+            inv = self.mul(partner, inv.unsqueeze(-1)).flatten(-2)[..., :n]
+        return self.select(zero, self.zeros(a.shape[1:]), inv)
+
     # ---- Montgomery conversions -------------------------------------------
     def to_canonical(self, a):
         """Montgomery form -> canonical residue words (a product with raw 1)."""

@@ -83,6 +83,21 @@ class Curve:
         ox, oy, oz = self.zero(batch)
         return (F.select(ident, ox, x), F.select(ident, oy, y), F.select(ident, oz, oy))
 
+    def to_affine(self, P):
+        """Projective -> (x, y, 1) by one batch inversion of Z along the last
+        axis (one ``inv`` for a single point); the identity -> (0, 1, 0)
+        (to_affine_coordinates, mnt4753_g1.cpp:68-83; batch_to_special,
+        multiexp.tcc:684)."""
+        F = self.F
+        X, Y, Z = P
+        ident = self.is_zero(P)
+        batch = ident.shape
+        Zi = F.batch_inv(Z) if batch else F.inv(Z)
+        k = F.elem_ndim  # x and y in one product: stacked on a new axis after the element's
+        x, y = F.mul(torch.stack([X, Y], dim=k), Zi.unsqueeze(k)).unbind(dim=k)
+        zero, one = F.zeros(batch), F.ones(batch)
+        return (F.select(ident, zero, x), F.select(ident, one, y), F.select(ident, zero, one))
+
     def is_zero(self, P):
         return torch.logical_and(self.F.is_zero(P[0]), self.F.is_zero(P[2]))
 

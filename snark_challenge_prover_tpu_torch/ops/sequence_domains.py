@@ -18,8 +18,8 @@ the JAX package's, which sums the same products in another order.
 JAX package does (its module docstring): that is the correct quotient step
 on a domain where Z is not constant on the coset.  The reference divides
 every entry by the constant Z(g) (geometric_sequence_domain.tcc:249-257).
-``evaluate_all_lagrange_polynomials`` and ``add_poly_Z`` serve only the key
-generator and are not ported yet.
+``evaluate_all_lagrange_polynomials`` and ``add_poly_Z`` serve the key
+generator, on host integers.
 """
 
 from __future__ import annotations
@@ -144,6 +144,32 @@ class _SequenceDomain(_Domain):
         for x in self.points:
             Z = Z * (t - x) % p
         return Z
+
+    def add_poly_Z(self, coeff: int, H: list):
+        """H += coeff * Z, Z = prod (x - x_i) of degree m (len(H) == m + 1)."""
+        if len(H) != self.m + 1:
+            raise ValueError("add_poly_Z expects len(H) == m+1")
+        p = self.F.p
+        for k, z in enumerate(_vanishing_coeffs(self.points, p)):
+            H[k] = (H[k] + coeff * z) % p
+
+    def evaluate_all_lagrange_polynomials(self, t: int) -> list:
+        """[L_j(t)] = Z(t) / ((t - x_j) prod_{k != j} (x_j - x_k)), the
+        inverses by Montgomery's trick; the indicator of t where t is a
+        domain point (geometric_sequence_domain.tcc:143-155)."""
+        p = self.F.p
+        t %= p
+        if t in self.points:
+            return [int(x == t) for x in self.points]
+        dens = []
+        for j, xj in enumerate(self.points):
+            d = t - xj
+            for k, xk in enumerate(self.points):
+                if k != j:
+                    d = d * (xj - xk) % p
+            dens.append(d)
+        z = self.compute_vanishing_polynomial(t)
+        return [z * v % p for v in batch_inverse(dens, p)]
 
 
 class GeometricSequenceDomain(_SequenceDomain):

@@ -8,7 +8,9 @@ small-integer scaling instead of a Montgomery product.  Fq2 multiplies by
 3-product Karatsuba (libff fp2.tcc:81-104) and squares by the complex
 method (fp2.tcc:106-135); Fq3 multiplies by the 6-product schedule of
 fp3.tcc.  The independent base-field products of one call are stacked
-into a single batched ``Fp.mul``.
+into a single batched ``Fp.mul``.  Inversion goes through the norm to the
+base field (fp2.tcc:137-153, fp3.tcc invert), whose ``inv`` / ``batch_inv``
+do the one exponentiation.
 """
 
 from __future__ import annotations
@@ -71,6 +73,23 @@ class _Ext:
         """A base-field element times the non-residue."""
         return self.base.mul_small(x, self.nr)
 
+    def mul_base(self, a, s):
+        """a times a base-field element s (broadcast over the components),
+        one batched base product."""
+        return torch.stack(self._stacked_mul(list(a), [s] * self.deg))
+
+    def inv(self, a):
+        """a^-1 = c / norm(a), where ``_adjugate`` gives the components c
+        with a * c = norm(a) in the base field; 0 maps to 0."""
+        c, norm = self._adjugate(a)
+        return self.mul_base(torch.stack(c), self.base.inv(norm))
+
+    def batch_inv(self, a):
+        """Elementwise inverse along the last axis: the norms through the
+        base field's product tree; zero lanes map to zero."""
+        c, norm = self._adjugate(a)
+        return self.mul_base(torch.stack(c), self.base.batch_inv(norm))
+
     # ---- predicates -----------------------------------------------------
     def is_zero(self, a):
         return (a == 0).all(dim=0).all(dim=0)
@@ -104,6 +123,12 @@ class Fp2(_Ext):
         c1 = F.double(v)
         return torch.stack([c0, c1])
 
+    def _adjugate(self, a):
+        # (a0 - a1 u)(a0 + a1 u) = a0^2 - nr a1^2
+        F = self.base
+        s0, s1 = self._stacked_mul([a[0], a[1]], [a[0], a[1]])
+        return [a[0], F.neg(a[1])], F.sub(s0, self.mul_nr(s1))
+
 
 class Fp3(_Ext):
     deg = 3
@@ -121,3 +146,13 @@ class Fp3(_Ext):
 
     def sqr(self, a):
         return self.mul(a, a)
+
+    def _adjugate(self, a):
+        # the classical cubic formula (fp3.tcc invert): c0 = a0^2 - nr a1 a2,
+        # c1 = nr a2^2 - a0 a1, c2 = a1^2 - a0 a2, norm = a0 c0 + nr (a2 c1 + a1 c2)
+        F = self.base
+        t0, t1, t2, t3, t4, t5 = self._stacked_mul(
+            [a[0], a[1], a[2], a[0], a[0], a[1]], [a[0], a[1], a[2], a[1], a[2], a[2]])
+        c = [F.sub(t0, self.mul_nr(t5)), F.sub(self.mul_nr(t2), t3), F.sub(t1, t4)]
+        n0, n1, n2 = self._stacked_mul([a[0], a[2], a[1]], c)
+        return c, F.add(n0, self.mul_nr(F.add(n1, n2)))

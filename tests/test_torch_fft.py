@@ -288,3 +288,76 @@ def test_domain_selection_matches_jax(curve):
         assert port_fft.best_mixed_domain_size(Ft, n) == jax_fft.best_mixed_domain_size(Fj, n), n
     with pytest.raises(ValueError):
         port_fft.get_evaluation_domain(Ft, 1)
+
+
+# ---- the key generator's host helpers against the JAX package's ---------------
+HELPER_DOMAINS = {
+    "radix2-8": (jax_mnt4753, mnt4753, 8, "Radix2Domain"),
+    "mixed-10": (jax_mnt6753, mnt6753, 10, "MixedRadixDomain"),
+    "extended-65536": (jax_mnt6753, mnt6753, 1 << 16, "ExtendedRadix2Domain"),
+    "step-12": (jax_mnt4753, mnt4753, 12, "StepRadix2Domain"),
+    "step-24": (jax_mnt6753, mnt6753, 24, "StepRadix2Domain"),
+    "geometric-7": (jax_mnt4753, mnt4753, 7, "GeometricSequenceDomain"),
+    "arithmetic-6": (jax_mnt4753, mnt4753, 6, "ArithmeticSequenceDomain"),
+}
+
+
+@pytest.mark.parametrize("key", sorted(HELPER_DOMAINS))
+def test_keygen_helpers_match_jax(key):
+    """get_domain_element, compute_vanishing_polynomial, add_poly_Z and
+    evaluate_all_lagrange_polynomials equal the JAX package's host methods,
+    at t outside the domain and at domain points (in each part)."""
+    jmod, tmod, n, kind = HELPER_DOMAINS[key]
+    Fj, Ft = jmod.get().Fr, tmod.get("cpu").Fr
+    if kind == "ArithmeticSequenceDomain":
+        dj, dt = jax_seq.ArithmeticSequenceDomain(Fj, n), port_seq.ArithmeticSequenceDomain(Ft, n)
+    else:
+        dj, dt = jax_fft.get_evaluation_domain(Fj, n), port_fft.get_evaluation_domain(Ft, n)
+    assert type(dj).__name__ == type(dt).__name__ == kind
+    p = Ft.p
+    rng = random.Random(n)
+    idx = sorted({0, 1, n // 2 - 1, n // 2, n - 1, rng.randrange(n)})
+    assert [dt.get_domain_element(i) for i in idx] == [dj.get_domain_element(i) for i in idx]
+    H = [rng.randrange(p) for _ in range(n + 1)]
+    Hj, Ht = list(H), list(H)
+    dj.add_poly_Z(12345, Hj)
+    dt.add_poly_Z(12345, Ht)
+    assert Ht == Hj
+    ts = [rng.randrange(p), 0] + [dt.get_domain_element(i) for i in idx[1::2]]
+    if n == 1 << 16:  # the JAX basis takes one inverse an element: two points only
+        ts = [ts[0], dt.get_domain_element(n // 2 + 1)]
+    for t in ts:
+        assert dt.compute_vanishing_polynomial(t) == dj.compute_vanishing_polynomial(t), t
+        got = dt.evaluate_all_lagrange_polynomials(t)
+        assert got == [int(v) for v in dj.evaluate_all_lagrange_polynomials(t)], t
+
+
+@pytest.mark.parametrize("n", [9, 17])
+def test_step_domain_with_a_small_part_of_one(n):
+    """m = 2^k + 1: the small part is the single point omega.  The JAX
+    package raises there (it builds Radix2Domain(F, 1), fft.py:587); the
+    port's basis is held to exact interpolation on the domain's points, at
+    t outside and at both parts' points, and sums to 1."""
+    F = mnt4753.get("cpu").Fr
+    p = F.p
+    dom = port_fft.get_evaluation_domain(F, n)
+    assert isinstance(dom, port_fft.StepRadix2Domain) and dom.small_m == 1
+    xs = [dom.get_domain_element(i) for i in range(n)]
+    assert len(set(xs)) == n
+    for t in (random.Random(n).randrange(p), xs[3], xs[-1]):
+        want = []
+        for i, xi in enumerate(xs):
+            num = den = 1
+            for j, xj in enumerate(xs):
+                if j != i:
+                    num, den = num * (t - xj) % p, den * (xi - xj) % p
+            want.append(num * pow(den, -1, p) % p)
+        got = dom.evaluate_all_lagrange_polynomials(t)
+        assert got == want and sum(got) % p == 1
+        z = 1
+        for x in xs:
+            z = z * (t - x) % p
+        assert dom.compute_vanishing_polynomial(t) == z
+    H = [0] * (n + 1)
+    dom.add_poly_Z(1, H)
+    assert sum(c * pow(xs[5], k, p) for k, c in enumerate(H)) % p == 0

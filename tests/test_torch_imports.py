@@ -26,7 +26,9 @@ def test_every_module_is_listed():
     for name in ("cli", "convert", "ops.cuda_field", "ops.cuda_group", "ops.msm", "ops.fft",
                  "ops._build", "proof_systems.groth16", "host.curves", "io.serialization",
                  "models.mnt4753", "models.mnt6753", "ops.towers", "utils.profiling",
-                 "ops.sequence_domains"):
+                 "ops.sequence_domains", "cli_generate_parameters", "ops.fixed_base",
+                 "ops.frobenius", "proof_systems.ate_pairing", "proof_systems.groth16_full",
+                 "reductions.r1cs_to_qap", "relations.r1cs", "relations.examples"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
