@@ -31,7 +31,8 @@ Then each curve generates its keys (``keygen``: the command line's
 MNT6753 at ``--keygen6``, the reference's defaults): its launch counts,
 phase times and peak memory; its queries checked against exact host
 multiplication (the first and last entries, 256 random ones and every
-identity, with the scalars replayed from the seed on the host); the
+identity, with the scalars replayed from the seed on the host and the QAP
+evaluated at t by this script's own Lagrange basis); the
 generated files proved through ``prove_files`` and the proof held to bytes
 that the host computes without any MSM; and every kernel compared with its
 plain version, and timed, at the keygen's largest and most frequent lane
@@ -77,8 +78,6 @@ from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa
 from snark_challenge_prover_tpu_torch.ops.fft import get_evaluation_domain  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, compute_h)
-from snark_challenge_prover_tpu_torch.reductions.r1cs_to_qap import (  # noqa: E402
-    instance_map_with_evaluation)
 from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
     generate_r1cs_example_with_field_input)
 from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
@@ -831,19 +830,37 @@ class HostComb:
         return self._affine(J)
 
 
-def host_keys(model, n: int, seed: int):
+def host_keys(model, hc, n: int, seed: int):
     """The generator's secrets and scalars for d + 1 = n, replayed from the
-    seed on the host: the example, the A/B swap, t, alpha, beta, delta, the
-    instance map and g1_scalar, in the generator's order of draws."""
+    seed on the host: the example, the A/B swap, t, alpha, beta, delta and
+    g1_scalar, in the generator's order of draws.  The QAP at t is
+    evaluated here from the constraints and this script's own Lagrange
+    basis (``lagrange_at``, from the field's roots), not by the port's
+    instance map: X_i(t) = sum over the rows j where variable i appears of
+    L_j(t) X_{j,i}, and A_i(t) gains L_{n_c + i}(t) for i <= num_inputs
+    (libsnark r1cs_to_qap.tcc:105-177)."""
     rng = random.Random(seed)
     r = model.Fr.p
     ex = generate_r1cs_example_with_field_input(r, n - 2, 1, rng)
     cs = ex.constraint_system
     cs.swap_AB_if_beneficial()
     t, alpha, beta, delta = (rng.randrange(1, r) for _ in range(4))
-    inst = instance_map_with_evaluation(cs, t, model.Fr)
-    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "inst": inst, "alpha": alpha,
-            "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
+    nc, nin, m = cs.num_constraints, cs.primary_input_size, cs.num_variables
+    kind = type(get_evaluation_domain(model.Fr, nc + nin + 1)).__name__
+    zt, L = lagrange_at(hc.fr_spec, kind, n, t)
+    At, Bt, Ct = [0] * (m + 1), [0] * (m + 1), [0] * (m + 1)
+    for i in range(nin + 1):
+        At[i] = L[nc + i]
+    for u, cons in zip(L, cs.constraints):
+        for X, lc in ((At, cons.a), (Bt, cons.b), (Ct, cons.c)):
+            for idx, coeff in lc.terms:
+                X[idx] += u * coeff
+    powers = [1] * (n - 1)  # t^i for the H query, i < d
+    for i in range(1, n - 1):
+        powers[i] = powers[i - 1] * t % r
+    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "At": [v % r for v in At],
+            "Bt": [v % r for v in Bt], "Ct": [v % r for v in Ct], "Zt": zt, "Ht": powers,
+            "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
 
 
 def read_point(raw: np.ndarray, off: int, deg: int, spec):
@@ -860,14 +877,14 @@ def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int):
     multiplication: the first and last entries, 256 random ones and every
     identity, and the identities' positions against the zero scalars."""
     r, deg = model.Fr.p, model.g2_deg
-    inst, d, m = keys["inst"], n - 1, n
+    d, m = n - 1, n
     dinv = pow(keys["delta"], -1, r)
     abc = [(keys["beta"] * a + keys["alpha"] * b + c) % r
-           for a, b, c in zip(inst.At, inst.Bt, inst.Ct)]
-    zdt = inst.Zt * dinv % r
+           for a, b, c in zip(keys["At"], keys["Bt"], keys["Ct"])]
+    zdt = keys["Zt"] * dinv % r
     g1s = keys["g1_scalar"]
-    queries = [("A", inst.At, 1), ("B1", inst.Bt, 1), ("B2", inst.Bt, deg),
-               ("L", [v * dinv % r for v in abc[2:]], 1), ("H", [zdt * h % r for h in inst.Ht[:d]], 1)]
+    queries = [("A", keys["At"], 1), ("B1", keys["Bt"], 1), ("B2", keys["Bt"], deg),
+               ("L", [v * dinv % r for v in abc[2:]], 1), ("H", [zdt * h % r for h in keys["Ht"]], 1)]
     combs = {1: HostComb(hc.g1, hc.g1_gen), deg: HostComb(hc.g2, hc.g2_gen)}
     raw = np.memmap(params_path, dtype=np.uint8, mode="r")
     if struct.unpack("<QQ", raw[:16].tobytes()) != (d, m):
@@ -899,11 +916,11 @@ def expected_keygen_proof(model, hc, keys: dict, input_path: Path) -> bytes:
     A = A(t) g1b, B = B(t) G2 and C = ((A(t) B(t) - C(t)) / delta + sum_{i>=2}
     w_i L_i + r B(t)) g1b, with g1b = g1_scalar G1, X(t) = sum_i w_i X_i(t),
     and h(t) Z(t) = A(t) B(t) - C(t) standing for the H query's sum."""
-    rr, inst, w = model.Fr.p, keys["inst"], keys["w"]
+    rr, w = model.Fr.p, keys["w"]
     dinv = pow(keys["delta"], -1, rr)
-    At, Bt, Ct = (sum(wi * v for wi, v in zip(w, vals)) % rr for vals in (inst.At, inst.Bt, inst.Ct))
+    At, Bt, Ct = (sum(wi * v for wi, v in zip(w, keys[k])) % rr for k in ("At", "Bt", "Ct"))
     Lsum = sum(wi * ((keys["beta"] * a + keys["alpha"] * b + c) % rr) for wi, a, b, c in
-               zip(w[2:], inst.At[2:], inst.Bt[2:], inst.Ct[2:])) * dinv % rr
+               zip(w[2:], keys["At"][2:], keys["Bt"][2:], keys["Ct"][2:])) * dinv % rr
     raw = input_path.read_bytes()
     r_blind = model.Fr.spec.from_mont(int.from_bytes(raw[-96:], "little"))
     c_scalar = ((At * Bt - Ct) * dinv + Lsum + r_blind * Bt) % rr
@@ -945,7 +962,7 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    keys = host_keys(model, n, seed)
+    keys = host_keys(model, hc, n, seed)
     t_replay = time.perf_counter() - t0
     t0 = time.perf_counter()
     checked = check_queries(model, hc, params_path, keys, n, seed)

@@ -3,8 +3,8 @@
 package's ``cli_generate_parameters.py``.
 
 Builds a satisfiable R1CS with d - 1 constraints and one public input,
-runs the Groth16 generator, evaluates A, B and C on the domain, draws r,
-and writes ``<curve>-parameters`` and ``<curve>-input`` in the challenge's
+makes the Groth16 proving key, evaluates A, B and C on the domain, draws
+r, and writes ``<curve>-parameters`` and ``<curve>-input`` in the challenge's
 wire format.  For the same seed the files are byte for byte the JAX
 package's.  Runs on the GPU; the CPU is used only with ``--device cpu``.
 
@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 from .io import serialization as ser
-from .proof_systems.groth16_full import canonical_words, generator
+from .proof_systems.groth16_full import canonical_words, proving_key
 from .reductions.r1cs_to_qap import assemble_abc_evaluations
 from .relations.examples import generate_r1cs_example_with_field_input
 from .utils.profiling import Profiler
@@ -34,8 +34,9 @@ from .utils.profiling import Profiler
 
 def generate_for_curve(model, log2_d: int, rng, outdir: Path, profiler: Profiler | None = None):
     """Writes the two files of d + 1 = 2^log2_d for the model's curve;
-    returns their paths.  Phases (``profiler``): "example", then the
-    generator's, then "write"."""
+    returns their paths.  Phases (``profiler``): "example", then those of
+    ``groth16_full.proving_key``, then "write".  The files need no
+    verification key, so none is made."""
     prof = profiler if profiler is not None else Profiler(model.device)
     Fr = model.Fr
     p = Fr.p
@@ -44,7 +45,7 @@ def generate_for_curve(model, log2_d: int, rng, outdir: Path, profiler: Profiler
     ex = generate_r1cs_example_with_field_input(p, d - 1, 1, rng)
     prof.leave_block("example")
     cs = ex.constraint_system
-    pk = generator(model, cs, rng, prof).pk
+    pk, _ = proving_key(model, cs, rng, prof)
     m = cs.num_variables
     if m != d + 1:  # d - 1 constraints and one input: m = d + 1 (generate_parameters.cpp:38)
         raise RuntimeError(f"m = {m}, d + 1 = {d + 1} expected")

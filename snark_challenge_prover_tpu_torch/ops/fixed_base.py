@@ -10,9 +10,10 @@ multiexp.tcc:507-682 and wnaf.tcc:25-125), the key generator's workhorse:
     level b adding 2^b times the row base to entries [0, 2^b) of every row
     in one launch of W 2^b lanes.  About W + 2c launches where the JAX
     package scans W 2^c one-lane additions.
-  * ``batch_exp`` / ``windowed_exp``: per window, a gather of each
-    scalar's table entry by its digit (``ops.msm.window_digits``) and one
-    N-wide addition, so W additions whatever N.
+  * ``batch_exp`` (libff's windowed_exp and batch_exp in one): per
+    window, a gather of each scalar's table entry by its digit
+    (``ops.msm.window_digits``) and one N-wide addition, so W additions
+    whatever N; ``batch_exp_with_coeff`` scales the scalars first.
   * ``fixed_window_wnaf_exp`` / ``opt_window_wnaf_exp``: one point times a
     host scalar; the digits are host integers, a run of k zero digits is one
     launch of k doublings (``Curve.double(P, times=k)``) and the odd
@@ -28,6 +29,7 @@ import math
 
 import torch
 
+from . import limbs as lb
 from .group import Curve
 from .msm import SCALAR_BITS, window_digits
 
@@ -78,11 +80,11 @@ def get_window_table(curve: Curve, window: int, base, scalar_bits: int = SCALAR_
     return _doubling_levels(curve, bases, window)
 
 
-def windowed_exp(curve: Curve, window: int, table, scalars_canonical: torch.Tensor,
-                 scalar_bits: int = SCALAR_BITS):
-    """sum_w T[w, digit_w(s)] for canonical scalars (24, *batch) -> points
-    with that batch (multiexp.tcc:585-613): one gather and, from the second
-    window on, one addition a window."""
+def batch_exp(curve: Curve, window: int, table, scalars_canonical: torch.Tensor,
+              scalar_bits: int = SCALAR_BITS):
+    """[s_i base] for canonical scalars (24, *batch) -> projective points
+    with that batch (multiexp.tcc:585-647, windowed_exp and batch_exp): one
+    gather and, from the second window on, one addition a window."""
     k = curve.F.elem_ndim
     W, B = table[0].shape[-2:]
     if (scalar_bits + window - 1) // window != W or 1 << window != B:
@@ -100,20 +102,14 @@ def windowed_exp(curve: Curve, window: int, table, scalars_canonical: torch.Tens
     return acc
 
 
-def batch_exp(curve: Curve, window: int, table, scalars_canonical: torch.Tensor,
-              scalar_bits: int = SCALAR_BITS):
-    """[s_i base] for canonical scalars (24, N) -> projective batch (N,)
-    (multiexp.tcc:615-647)."""
-    return windowed_exp(curve, window, table, scalars_canonical, scalar_bits)
-
-
 def batch_exp_with_coeff(curve: Curve, window: int, table, coeff_mont: torch.Tensor,
                          scalars_mont: torch.Tensor, F, scalar_bits: int = SCALAR_BITS):
-    """[(coeff s_i) base] (multiexp.tcc:649-682), coeff (24,) and the
-    scalars in Montgomery form over the scalar field F; the products and
+    """[(coeff s_i) base] (multiexp.tcc:649-682), the coefficient and the
+    scalars (24, *batch) in Montgomery form over the scalar field F; the
+    coefficient is one (24,) for all, or one a scalar.  The products and
     their canonical form on the device."""
-    return windowed_exp(curve, window, table, F.to_canonical(F.mul_const(scalars_mont, coeff_mont)),
-                        scalar_bits)
+    prod = F.mul(scalars_mont, lb.bcast_const(coeff_mont, scalars_mont))
+    return batch_exp(curve, window, table, F.to_canonical(prod), scalar_bits)
 
 
 # ---------------------------------------------------------------------------

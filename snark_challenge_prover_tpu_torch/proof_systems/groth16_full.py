@@ -6,15 +6,18 @@ sample t, alpha, beta, delta; evaluate the QAP at t
 (``reductions.r1cs_to_qap.instance_map_with_evaluation``, host); build the
 A, B, L and H queries by fixed-base exponentiation on the model's device
 (``ops.fixed_base``), the four G1 queries through one window table and one
-``batch_exp``, the G2 B query through its own; and the verification key's
-e(alpha, beta), delta_g2 and ABC on the host.  This scheme variant has no
-gamma: ABC pairs with the plain G2 generator.
+``batch_exp_with_coeff``, the G2 B query through its own ``batch_exp``
+(``proving_key``); and the verification key's e(alpha, beta), delta_g2 and
+ABC on the host (``verification_key``).  This scheme variant has no gamma:
+ABC pairs with the plain G2 generator.  The challenge's files need only
+the proving key, so ``cli_generate_parameters`` calls ``proving_key``
+alone; the JAX package's ``generator`` and ``Keypair`` are these two
+calls.
 
 The scalars are made on the device from the host's canonical words: ABC_i
 = beta A_i(t) + alpha B_i(t) + C_i(t), L_i = ABC_i / delta for the
-auxiliary variables and H_i = t^i Z(t) / delta (the JAX package's
-``batch_exp_with_coeff`` semantics).  The blinded prover and the verifiers
-are not ported yet.
+auxiliary variables and H_i = t^i Z(t) / delta, t^i by ``ops.fft.power_table``.
+The blinded prover and the verifiers are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,12 +68,6 @@ class VerificationKey:
     ABC_g1: list             # [ABC_0, ..., ABC_num_inputs] host affine
 
 
-@dataclass
-class Keypair:
-    pk: ProvingKey
-    vk: VerificationKey
-
-
 def canonical_words(F, values) -> torch.Tensor:
     """Canonical host integers -> their words (24, len) on F's device."""
     return torch.from_numpy(ints_to_words(values)).to(F.device)
@@ -83,11 +80,22 @@ def _wire_affine(curve, P):
     return x, F.select(F.is_zero(z), F.zeros(z.shape[F.elem_ndim:]), y)
 
 
-def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = None) -> Keypair:
-    """r1cs_gg_ppzksnark_generator (tcc:207-380), drawing from ``rng`` in
-    the JAX package's order: the A/B swap, then t, alpha, beta, delta, then
-    the G1 base's scalar.  Phases: "instance map", "scalars", "window
-    tables", "G1 queries", "G2 query", "vk"."""
+@dataclass
+class KeySecrets:
+    """What the verification key needs of the generator's secrets: the G1
+    base (host affine) and ABC_i = beta A_i(t) + alpha B_i(t) + C_i(t) for
+    i <= num_inputs."""
+
+    g1_base: tuple
+    abc: list
+
+
+def proving_key(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = None):
+    """The proving key of r1cs_gg_ppzksnark_generator (tcc:207-350) and the
+    secrets ``verification_key`` needs, drawing from ``rng`` in the JAX
+    package's order: the A/B swap, then t, alpha, beta, delta, then the G1
+    base's scalar.  Phases: "instance map", "scalars", "window tables",
+    "G1 queries", "G2 query"."""
     prof = profiler if profiler is not None else Profiler(model.device, verbose=False)
     hc = host_curve(model.name)
     Fr, G1, G2 = model.Fr, model.G1, model.G2
@@ -107,14 +115,20 @@ def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = 
 
     prof.enter_block("scalars")
     At, Bt, Ct = (canonical_words(Fr, v) for v in (inst.At, inst.Bt, inst.Ct))
-    abc = Fr.add(Fr.add(Fr.mul_const(Fr.from_canonical(At), Fr.const(beta)),
-                        Fr.mul_const(Fr.from_canonical(Bt), Fr.const(alpha))),
+    At_m, Bt_m = Fr.from_canonical(At), Fr.from_canonical(Bt)
+    abc = Fr.add(Fr.add(Fr.mul_const(At_m, Fr.const(beta)), Fr.mul_const(Bt_m, Fr.const(alpha))),
                  Fr.from_canonical(Ct))
-    Lt = Fr.to_canonical(Fr.mul_const(abc[:, nin + 1 :], Fr.const(delta_inv)))
-    Ht = Fr.to_canonical(Fr.mul_const(power_table(Fr, t, n - 1), Fr.const(inst.Zt * delta_inv % r_p)))
-    g1_scalars = torch.cat([At, Bt, Lt, Ht], dim=1)  # one table, one batch_exp for the four
-    del abc, Lt, Ht, At, Ct
-    ABC = [(beta * inst.At[i] + alpha * inst.Bt[i] + inst.Ct[i]) % r_p for i in range(nin + 1)]
+    # the four G1 queries share one table and one batch_exp: A, B, then
+    # L_i = ABC_i / delta and H_i = t^i Z(t) / delta, the last two by their
+    # coefficients (multiexp.tcc:649)
+    g1_scalars = torch.cat([At_m, Bt_m, abc[:, nin + 1 :], power_table(Fr, t, n - 1)], dim=1)
+    g1_coeffs = torch.cat([Fr.const(1).unsqueeze(1).expand(-1, 2 * (m + 1)),
+                           Fr.const(delta_inv).unsqueeze(1).expand(-1, m - nin),
+                           Fr.const(inst.Zt * delta_inv % r_p).unsqueeze(1).expand(-1, n - 1)],
+                          dim=1)
+    del abc, At, Ct, At_m, Bt_m
+    abc_inputs = [(beta * inst.At[i] + alpha * inst.Bt[i] + inst.Ct[i]) % r_p
+                  for i in range(nin + 1)]
     g1_scalar = rng.randrange(1, r_p)  # the G1 base is g1_scalar times the generator (tcc:290)
     prof.leave_block("scalars")
 
@@ -127,8 +141,8 @@ def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = 
     prof.leave_block("window tables")
 
     prof.enter_block("G1 queries")
-    x, y = _wire_affine(G1, fixed_base.batch_exp(G1, w1, t1, g1_scalars))
-    del g1_scalars, t1
+    x, y = _wire_affine(G1, fixed_base.batch_exp_with_coeff(G1, w1, t1, g1_coeffs, g1_scalars, Fr))
+    del g1_scalars, g1_coeffs, t1
     ends = [0, m + 1, 2 * (m + 1), 2 * (m + 1) + m - nin, x.shape[-1]]
     A_q, B1_q, L_q, H_q = ((x[:, a:b], y[:, a:b]) for a, b in zip(ends, ends[1:]))
     prof.leave_block("G1 queries")
@@ -138,18 +152,21 @@ def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = 
     del Bt, t2
     prof.leave_block("G2 query")
 
-    prof.enter_block("vk")
     g1b = _g1_proj_to_host(model, g1_base)
     g2b = hc.g2_gen
-    alpha_g1 = hc.g1.mul(alpha, g1b)
-    beta_g2 = hc.g2.mul(beta, g2b)
-    delta_g2 = hc.g2.mul(delta, g2b)
-    pk = ProvingKey(curve=model.name, alpha_g1=alpha_g1, beta_g1=hc.g1.mul(beta, g1b),
-                    beta_g2=beta_g2, delta_g1=hc.g1.mul(delta, g1b), delta_g2=delta_g2,
-                    A_query=A_q, B_query_g2=B2_q, B_query_g1=B1_q, H_query=H_q, L_query=L_q,
-                    constraint_system=cs)
-    vk = VerificationKey(curve=model.name,
-                         alpha_g1_beta_g2=AtePairing(hc).reduced_pairing(alpha_g1, beta_g2),
-                         delta_g2=delta_g2, ABC_g1=[hc.g1.mul(v, g1b) for v in ABC])
-    prof.leave_block("vk")
-    return Keypair(pk, vk)
+    pk = ProvingKey(curve=model.name, alpha_g1=hc.g1.mul(alpha, g1b), beta_g1=hc.g1.mul(beta, g1b),
+                    beta_g2=hc.g2.mul(beta, g2b), delta_g1=hc.g1.mul(delta, g1b),
+                    delta_g2=hc.g2.mul(delta, g2b), A_query=A_q, B_query_g2=B2_q,
+                    B_query_g1=B1_q, H_query=H_q, L_query=L_q, constraint_system=cs)
+    return pk, KeySecrets(g1_base=g1b, abc=abc_inputs)
+
+
+def verification_key(pk: ProvingKey, secrets: KeySecrets) -> VerificationKey:
+    """r1cs_gg_ppzksnark_verification_key (tcc:352-366) on the host:
+    e(alpha_g1, beta_g2), delta_g2 and ABC_i times the G1 base."""
+    hc = host_curve(pk.curve)
+    return VerificationKey(curve=pk.curve,
+                           alpha_g1_beta_g2=AtePairing(hc).reduced_pairing(pk.alpha_g1, pk.beta_g2),
+                           delta_g2=pk.delta_g2,
+                           ABC_g1=[hc.g1.mul(v, secrets.g1_base) for v in secrets.abc])
+

@@ -5,7 +5,7 @@ Counterpart of the JAX package's ``reductions/r1cs_to_qap.py``
 
   * ``instance_map_with_evaluation`` (tcc:105-177): every QAP polynomial
     A_i, B_i, C_i evaluated at the secret point t through the domain's
-    Lagrange basis, the powers of t and Z(t), as exact integers;
+    Lagrange basis, and Z(t), as exact integers;
   * ``assemble_abc_evaluations`` (tcc:225-238 and the aC loop at
     :286-291): the evaluations of A, B and C on the domain for an
     assignment, which the challenge's input file carries.
@@ -23,17 +23,10 @@ from ..ops.fft import get_domain_of_min_size
 from ..relations.r1cs import R1CSConstraintSystem
 
 
-def qap_domain_size(cs: R1CSConstraintSystem, F=None) -> int:
-    """The QAP's domain size: that of the field's smallest domain holding
-    num_constraints + num_inputs + 1 points; without a field the next
-    power of two."""
-    n = cs.num_constraints + cs.primary_input_size + 1
-    if F is not None:
-        return get_domain_of_min_size(F, n).n
-    size = 1
-    while size < n:
-        size *= 2
-    return size
+def qap_domain_size(cs: R1CSConstraintSystem, F) -> int:
+    """The QAP's domain size: that of F's smallest domain holding
+    num_constraints + num_inputs + 1 points."""
+    return get_domain_of_min_size(F, cs.num_constraints + cs.primary_input_size + 1).n
 
 
 @dataclass
@@ -48,13 +41,14 @@ class QAPInstanceEvaluation:
     At: list  # num_variables + 1 entries
     Bt: list
     Ct: list
-    Ht: list  # domain_size + 1 powers of t
     Zt: int
 
 
 def instance_map_with_evaluation(cs: R1CSConstraintSystem, t: int, F) -> QAPInstanceEvaluation:
     """r1cs_to_qap_instance_map_with_evaluation (tcc:105-177).  Sums are
-    reduced once at the end, which gives the same residues."""
+    reduced once at the end, which gives the same residues.  The powers of
+    t (the JAX package's ``Ht``) are left to the caller, which makes them
+    where it needs them (the generator on the device, ``ops.fft.power_table``)."""
     p = cs.p
     domain = get_domain_of_min_size(F, cs.num_constraints + cs.primary_input_size + 1)
     n = domain.n
@@ -75,16 +69,12 @@ def instance_map_with_evaluation(cs: R1CSConstraintSystem, t: int, F) -> QAPInst
             Bt[idx] += ui * coeff
         for idx, coeff in cons.c.terms:
             Ct[idx] += ui * coeff
-
-    Ht = [1] * (n + 1)
-    for i in range(1, n + 1):
-        Ht[i] = Ht[i - 1] * t % p
     return QAPInstanceEvaluation(
         domain_size=n, num_variables=nvar, num_inputs=cs.primary_input_size, t=t,
-        At=[v % p for v in At], Bt=[v % p for v in Bt], Ct=[v % p for v in Ct], Ht=Ht, Zt=Zt)
+        At=[v % p for v in At], Bt=[v % p for v in Bt], Ct=[v % p for v in Ct], Zt=Zt)
 
 
-def assemble_abc_evaluations(cs: R1CSConstraintSystem, primary, auxiliary, F=None):
+def assemble_abc_evaluations(cs: R1CSConstraintSystem, primary, auxiliary, F):
     """(aA, aB, aC), each of qap_domain_size(cs, F) host integers: row i
     of the constraints' A, B and C on the assignment, and the input
     consistency rows aA[n_c + i] = w_i (w_0 = 1)."""

@@ -2,10 +2,11 @@
 on device="cpu".
 
 ``find_wnaf`` and ``get_exp_window_size`` against the JAX package's; the
-window table (12-bit scalars, every entry), ``batch_exp`` and
-``batch_exp_with_coeff`` (full 753-bit scalars 0, 1, 2, random and r - 1,
-one table a group) and ``opt_window_wnaf_exp`` over G1 and G2 of both
-curves against exact host scalar multiplication; ``inv`` / ``batch_inv``
+window table (12-bit scalars, every entry), ``batch_exp`` on 12-bit
+scalars and ``opt_window_wnaf_exp`` over G1 and G2 of both curves, and
+``batch_exp`` and ``batch_exp_with_coeff`` (one coefficient, and one a
+scalar) on full 753-bit scalars 0, 1, 2, random and r - 1 over one group a
+curve, against exact host scalar multiplication; ``inv`` / ``batch_inv``
 over Fp, Fp2 and Fp3 with zero lanes and ``mul_base`` against exact
 integers; ``to_affine`` with identity lanes.  The JAX package's table, walk
 and ``batch_exp`` are not run: under ``jax.jit`` they compile for minutes."""
@@ -89,7 +90,24 @@ def test_window_table_entries(name, group):
     assert got == [hg.mul(4 * j << (3 * w), hgen) for w in range(4) for j in range(8)]
 
 
-@pytest.fixture(scope="module", params=GROUPS, ids=IDS)
+@pytest.mark.parametrize("name,group", GROUPS, ids=IDS)
+def test_batch_exp_small_scalars(name, group):
+    """batch_exp over a 12-bit table of 3-bit windows: 0, 1, 2, a random
+    scalar and 2^12 - 1, in a (2, 3) batch."""
+    model, curve, gen, hg, hgen = _setup(name, group)
+    T = fb.get_window_table(curve, 3, gen, scalar_bits=12)
+    scal = [0, 1, 2, random.Random(12).randrange(1 << 12), (1 << 12) - 1, 7]
+    got = fb.batch_exp(curve, 3, T, _words(scal).reshape(24, 2, 3), scalar_bits=12)
+    flat = tuple(t.reshape(t.shape[:curve.F.elem_ndim] + (6,)) for t in got)
+    assert _host_points(model, curve, flat) == [hg.mul(s, hgen) for s in scal]
+
+
+# one group a curve at full width: Fq2 (MNT4753 G2) and Fp (MNT6753 G1); the
+# key generator's test covers the other two at full width
+FULL_GROUPS = [("MNT4753", "G2"), ("MNT6753", "G1")]
+
+
+@pytest.fixture(scope="module", params=FULL_GROUPS, ids=[f"{c}-{g}" for c, g in FULL_GROUPS])
 def full_table(request):
     """One 753-bit table of 5-bit windows over the generator (151 rows; its
     cost is the chain of 750 doublings that any 753-bit table needs)."""
@@ -117,6 +135,19 @@ def test_batch_exp_with_coeff(full_table):
     mont = _words([Fr.spec.to_mont(s) for s in scal])
     got = fb.batch_exp_with_coeff(curve, 5, T, Fr.const(coeff), mont, Fr)
     assert _host_points(model, curve, got) == [hg.mul(coeff * s % r, hgen) for s in scal]
+
+
+def test_batch_exp_with_a_coefficient_a_scalar(full_table):
+    """The key generator's form: one coefficient a scalar, (24, N)."""
+    model, curve, T, hg, hgen = full_table
+    Fr, r = model.Fr, model.Fr.p
+    scal = _scalars(model)
+    rng = random.Random(6)
+    coeffs = [1, rng.randrange(r), 0, rng.randrange(r), r - 1]
+    mont = _words([Fr.spec.to_mont(s) for s in scal])
+    cm = _words([Fr.spec.to_mont(c) for c in coeffs])
+    got = fb.batch_exp_with_coeff(curve, 5, T, cm, mont, Fr)
+    assert _host_points(model, curve, got) == [hg.mul(c * s % r, hgen) for c, s in zip(coeffs, scal)]
 
 
 def test_batch_exp_refuses_another_window(full_table):

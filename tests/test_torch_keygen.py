@@ -1,22 +1,26 @@
 """The port's key generator on device="cpu" at d + 1 = 8, both curves.
 
-``cli_generate_parameters.main`` with ``--curve both --seed 42 --device
-cpu`` (both curves draw from one generator, MNT4753 first): each curve's
-two files must be byte for byte what the JAX package's generator writes for
+``cli_generate_parameters.main`` with ``--curve <curve> --seed 42
+--device cpu``, once a curve for all parallel workers: each curve's two
+files must be byte for byte what the JAX package's generator writes for
 that seed.  The expected bytes are built here from the JAX package's host
 functions replaying the seed (``relations.examples``,
 ``swap_AB_if_beneficial``, ``r1cs_to_qap.instance_map_with_evaluation`` and
 ``assemble_abc_evaluations``) and tools/oracle.py's exact group law, laid
 out as the JAX package's ``cli_generate_parameters.py:50-96`` writes them;
 the JAX generator itself is not run (its fixed-base programs compile for
-minutes).  The port's verification key is held to the JAX package's
-``AtePairing`` on the same points, and the port's prover must prove the
-generated files to tools/oracle.py's bytes, as tests/test_generate_parameters.py
-holds the JAX prover.  ``convert.proving_key_from_jax`` is checked on a JAX
-``ProvingKey`` assembled by hand from host points."""
+minutes).  The port's verification key (``verification_key`` of the
+proving key and secrets that the command's ``proving_key`` made) is held
+to the JAX package's ``AtePairing`` on the same points, and the port's
+prover must prove the generated MNT4753 files to tools/oracle.py's bytes,
+as tests/test_generate_parameters.py holds the JAX prover.
+``convert.proving_key_from_jax`` is checked on a JAX ``ProvingKey``
+assembled by hand from host points."""
 
+import fcntl
 import hashlib
 import io
+import os
 import random
 import struct
 
@@ -35,6 +39,7 @@ from snark_challenge_prover_tpu.utils.bigint import ints_to_limbs
 from snark_challenge_prover_tpu_torch import cli_generate_parameters as port_cli
 from snark_challenge_prover_tpu_torch import convert
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753
+from snark_challenge_prover_tpu_torch.proof_systems import groth16_full as port_g16
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import ChallengeProver
 from tools import oracle as orc
 
@@ -88,68 +93,106 @@ def _replay(name: str, rng):
             "delta": delta, "g1b": g1b, "ABC": ABC[: nin + 1], "cur": cur}
 
 
-@pytest.fixture(scope="module")
-def generated(tmp_path_factory):
-    """The command line run once for both curves; the keypairs its
-    generator returned, by a spy on ``generator``."""
-    out = tmp_path_factory.mktemp("keygen")
-    keypairs = []
+def _once(tmp_path_factory, key: str, make):
+    """make(directory) run once in a test session, whichever of the
+    parallel workers asks first: it runs under a lock in a directory that
+    all workers share, and its pickled result is read back by every later
+    caller, so the other workers wait for it instead of running it again."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # the workers' basetemps share this parent
+    out, done = root / key, root / f"{key}.pt"
+    with open(root / f"{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            out.mkdir(exist_ok=True)
+            torch.save(make(out), root / f"{key}.tmp")
+            os.replace(root / f"{key}.tmp", done)
+    return out, torch.load(done, weights_only=False)
+
+
+def _generate(name, out):
+    """The command line for one curve; the proving key and secrets that its
+    ``proving_key`` returned, by a spy."""
+    made = []
 
     def spy(*args, **kwargs):
-        keypairs.append(real(*args, **kwargs))
-        return keypairs[-1]
+        made.append(real(*args, **kwargs))
+        return made[-1]
 
-    real = port_cli.generator
+    real = port_cli.proving_key
+    flag = "--log2d-mnt4" if name == "MNT4753" else "--log2d-mnt6"
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(port_cli, "generator", spy)
-        assert port_cli.main(["--curve", "both", "--log2d-mnt4", str(LOG2D), "--log2d-mnt6",
-                              str(LOG2D), "--seed", str(SEED), "--outdir", str(out),
-                              "--device", "cpu"]) == 0
-    rng = random.Random(SEED)
-    want = {name: _replay(name, rng) for name in CURVES}  # one generator, MNT4753 first
-    return {name: {"dir": out, "keypair": kp, "want": want[name]}
-            for name, kp in zip(CURVES, keypairs)}
+        mp.setattr(port_cli, "proving_key", spy)
+        assert port_cli.main(["--curve", name, flag, str(LOG2D), "--seed", str(SEED),
+                              "--outdir", str(out), "--device", "cpu"]) == 0
+    (pk_and_secrets,) = made
+    return pk_and_secrets
+
+
+_GENERATED = {}
+
+
+def _generated(tmp_path_factory, name):
+    """One curve's files from the command line at d + 1 = 8 with the seed
+    (made once for all workers), its proving key and secrets, and the JAX
+    generator's files, replayed."""
+    if name not in _GENERATED:
+        out, (pk, secrets) = _once(tmp_path_factory, f"keygen-{name}",
+                                   lambda d: _generate(name, d))
+        _GENERATED[name] = {"dir": out, "pk": pk, "secrets": secrets,
+                            "want": _replay(name, random.Random(SEED))}
+    return _GENERATED[name]
 
 
 @pytest.mark.parametrize("name", CURVES)
-def test_params_file_is_the_jax_generators(generated, name):
-    got = (generated[name]["dir"] / f"{name}-parameters").read_bytes()
-    assert got == generated[name]["want"]["params"]
+def test_params_file_is_the_jax_generators(tmp_path_factory, name):
+    generated = _generated(tmp_path_factory, name)
+    assert (generated["dir"] / f"{name}-parameters").read_bytes() == generated["want"]["params"]
 
 
 @pytest.mark.parametrize("name", CURVES)
-def test_input_file_is_the_jax_generators(generated, name):
-    got = (generated[name]["dir"] / f"{name}-input").read_bytes()
-    assert got == generated[name]["want"]["input"]
+def test_input_file_is_the_jax_generators(tmp_path_factory, name):
+    generated = _generated(tmp_path_factory, name)
+    assert (generated["dir"] / f"{name}-input").read_bytes() == generated["want"]["input"]
 
 
 @pytest.mark.parametrize("name", CURVES)
-def test_keys_are_the_jax_generators(generated, name):
-    """The proving key's single points and the verification key, the
-    pairing by the JAX package's AtePairing."""
-    want, kp = generated[name]["want"], generated[name]["keypair"]
+def test_keys_are_the_jax_generators(tmp_path_factory, name):
+    """The proving key's single points and the verification key that
+    ``verification_key`` makes of it, the pairing by the JAX package's
+    AtePairing."""
+    generated = _generated(tmp_path_factory, name)
+    want = generated["want"]
+    pk = generated["pk"]
+    vk = port_g16.verification_key(pk, generated["secrets"])
     cur, g1b = want["cur"], want["g1b"]
     alpha_g1 = cur.g1.mul(want["alpha"], g1b)
     beta_g2 = cur.g2.mul(want["beta"], cur.g2_gen)
     delta_g2 = cur.g2.mul(want["delta"], cur.g2_gen)
-    assert kp.pk.curve == kp.vk.curve == name
-    assert kp.pk.alpha_g1 == alpha_g1
-    assert kp.pk.beta_g1 == cur.g1.mul(want["beta"], g1b)
-    assert kp.pk.beta_g2 == beta_g2
-    assert kp.pk.delta_g1 == cur.g1.mul(want["delta"], g1b)
-    assert kp.pk.delta_g2 == kp.vk.delta_g2 == delta_g2
-    assert kp.vk.ABC_g1 == [cur.g1.mul(v, g1b) for v in want["ABC"]]
+    assert pk.curve == vk.curve == name
+    assert pk.alpha_g1 == alpha_g1
+    assert pk.beta_g1 == cur.g1.mul(want["beta"], g1b)
+    assert pk.beta_g2 == beta_g2
+    assert pk.delta_g1 == cur.g1.mul(want["delta"], g1b)
+    assert pk.delta_g2 == vk.delta_g2 == delta_g2
+    assert vk.ABC_g1 == [cur.g1.mul(v, g1b) for v in want["ABC"]]
     engine = JaxAtePairing(jax_host_curve(name))
-    assert kp.vk.alpha_g1_beta_g2 == engine.reduced_pairing(alpha_g1, beta_g2)
+    assert vk.alpha_g1_beta_g2 == engine.reduced_pairing(alpha_g1, beta_g2)
 
 
-@pytest.mark.parametrize("name", CURVES)
-def test_port_proves_the_generated_files_as_the_oracle(generated, name):
+@pytest.mark.parametrize("name", ["MNT4753"])
+def test_port_proves_the_generated_files_as_the_oracle(tmp_path_factory, name):
+    """MNT4753's files only: a CPU prove of MNT6753 takes longer than its
+    whole generation, and the port's MNT6753 prover is held to the oracle
+    on the committed fixture (tests/test_torch_prover.py) and to exact
+    integers on its generated files at full size (chip_smoke.py)."""
     from test_generate_parameters import _parse_with_oracle
 
-    pp = generated[name]["dir"] / f"{name}-parameters"
-    ip = generated[name]["dir"] / f"{name}-input"
-    cur = generated[name]["want"]["cur"]
+    generated = _generated(tmp_path_factory, name)
+    pp = generated["dir"] / f"{name}-parameters"
+    ip = generated["dir"] / f"{name}-input"
+    cur = generated["want"]["cur"]
     params, inputs = _parse_with_oracle(cur, pp, ip)
     want = orc.prove(cur, params, inputs)
     got = ChallengeProver(PORT_MODELS[name].get("cpu"), verbose=False).prove_files(str(pp), str(ip))
