@@ -38,6 +38,19 @@ that the host computes without any MSM; and every kernel compared with its
 plain version, and timed, at the keygen's largest and most frequent lane
 counts.
 
+Then, on the key generation's in-process proving key and its host replay,
+the ``groth16`` phase: the blinded prover (``groth16_full.prover``, r and s
+drawn from the seed) with its launch counts, phase times and peak memory,
+its bytes held to bytes the host computes without any MSM; the
+verification key and ``verifier_strong_IC`` accepting the proof and
+rejecting a wrong input, a tampered A and a truncated input; the witness
+map against ``compute_h`` and, plain and with a random zero-knowledge patch,
+by the identity (A + d1 Z)(B + d2 Z) - (C + d3 Z) = H Z at a random point;
+``bg.prover`` with a random d against the host's scalars and its verifier;
+``kc_multi_exp_fused`` and ``kc_multi_exp`` against the prover's B MSMs,
+timed; the full-size keys and the proof through ``io.keys``, timed; and
+every kernel compared and timed at the blinded prove's lane counts.
+
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
 ``{"ok": true, "device": {...}}``; the line before the card's name and
@@ -71,13 +84,19 @@ sys.path.insert(0, str(REPO))
 from snark_challenge_prover_tpu_torch import cli  # noqa: E402
 from snark_challenge_prover_tpu_torch.cli_generate_parameters import generate_for_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.host.curves import host_curve  # noqa: E402
+from snark_challenge_prover_tpu_torch.io import keys as key_io  # noqa: E402
 from snark_challenge_prover_tpu_torch.io import serialization as ser  # noqa: E402
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops import _build, cuda_field, cuda_group  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.fft import get_evaluation_domain  # noqa: E402
+from snark_challenge_prover_tpu_torch.ops.field import canonical_words  # noqa: E402
+from snark_challenge_prover_tpu_torch.proof_systems import bg, groth16_full  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
-    ChallengeProver, compute_h)
+    ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
+from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import (  # noqa: E402
+    KCVector, kc_multi_exp, kc_multi_exp_fused)
+from snark_challenge_prover_tpu_torch.reductions import r1cs_to_qap as qap  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
     generate_r1cs_example_with_field_input)
 from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
@@ -858,7 +877,8 @@ def host_keys(model, hc, n: int, seed: int):
     powers = [1] * (n - 1)  # t^i for the H query, i < d
     for i in range(1, n - 1):
         powers[i] = powers[i - 1] * t % r
-    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "At": [v % r for v in At],
+    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "nin": nin, "t": t,
+            "At": [v % r for v in At],
             "Bt": [v % r for v in Bt], "Ct": [v % r for v in Ct], "Zt": zt, "Ht": powers,
             "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
 
@@ -924,10 +944,14 @@ def expected_keygen_proof(model, hc, keys: dict, input_path: Path) -> bytes:
     raw = input_path.read_bytes()
     r_blind = model.Fr.spec.from_mont(int.from_bytes(raw[-96:], "little"))
     c_scalar = ((At * Bt - Ct) * dinv + Lsum + r_blind * Bt) % rr
-    g1s, fq = keys["g1_scalar"], hc.fq_spec
-    A = hc.g1.mul(At * g1s % rr, hc.g1_gen)
-    B = hc.g2.mul(Bt, hc.g2_gen)
-    C = hc.g1.mul(c_scalar * g1s % rr, hc.g1_gen)
+    g1s = keys["g1_scalar"]
+    return wire_bytes(model, hc, hc.g1.mul(At * g1s % rr, hc.g1_gen), hc.g2.mul(Bt, hc.g2_gen),
+                      hc.g1.mul(c_scalar * g1s % rr, hc.g1_gen))
+
+
+def wire_bytes(model, hc, A, B, C) -> bytes:
+    """A proof's bytes in the wire format, from host affine points."""
+    fq = hc.fq_spec
 
     def g1(P):
         return b"\x00" * 192 if P is None else mont_bytes(fq, P[0]) + mont_bytes(fq, P[1])
@@ -942,15 +966,18 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
     on the card, with the launch counts set to 0 just before and read just
     after; the queries against exact multiplication; the generated files
     proved through ``prove_files`` and the proof against exact-integer
-    bytes.  Returns the keygen's launch and lane counts."""
+    bytes.  Returns the keygen's launch and lane counts, what
+    ``generate_for_curve`` made (the proving key, its secrets, the example)
+    and the host's replay of the secrets and the QAP at t, which the
+    groth16 phase reuses."""
     prof = Profiler(model.device, verbose=False)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_field.launches.clear()
     cuda_field.launch_lanes.clear()
     t0 = time.perf_counter()
-    params_path, input_path = generate_for_curve(model, n.bit_length() - 1, random.Random(seed),
-                                                 workdir, prof)
+    gen = generate_for_curve(model, n.bit_length() - 1, random.Random(seed), workdir, prof)
+    params_path, input_path = gen.params_path, gen.input_path
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = dict(cuda_field.launches)
@@ -971,7 +998,6 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
     t0 = time.perf_counter()
     want = expected_keygen_proof(model, hc, keys, input_path)
     t_expected = time.perf_counter() - t0
-    del keys
     out_path = workdir / f"{hc.name}-keygen.output"
     prover = ChallengeProver(model, verbose=False)
     t0 = time.perf_counter()
@@ -994,13 +1020,251 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
          lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
                 for k, v in path_lanes.items()},
          largest_doubling={k: max(v, key=lambda s: (s[0], s[1])) for k, v in dbl.items()})
+    return launches, path_lanes, gen, keys
+
+
+# --------------------------------------------------------------------------
+# phase: groth16
+# --------------------------------------------------------------------------
+def qap_at_t(model, keys: dict) -> dict:
+    """The witness's QAP polynomials at the key's t by exact integers:
+    X(t) = sum_i w_i X_i(t) for X = A, B, C, and sum_{i > nin} w_i ABC_i(t)."""
+    rr, w, nin = model.Fr.p, keys["w"], keys["nin"]
+    out = {k: sum(wi * v for wi, v in zip(w, keys[k + "t"])) % rr for k in "ABC"}
+    out["L"] = sum(wi * (keys["beta"] * a + keys["alpha"] * b + c) for wi, a, b, c in
+                   zip(w[nin + 1 :], keys["At"][nin + 1 :], keys["Bt"][nin + 1 :],
+                       keys["Ct"][nin + 1 :])) % rr
+    return out
+
+
+def blinded_scalars(model, keys: dict, at_t: dict, r: int, s: int, d: int = 1):
+    """The scalars of a blinded proof by exact integers, with no MSM: A =
+    a g1b, B = b G2 (b g1b in G1), C = c g1b, for delta' = d delta (d = 1:
+    Groth16, else BG) and blinding r, s: a = alpha + A(t) + r delta',
+    b = beta + B(t) + s delta', c = d^-1 (A(t) B(t) - C(t) + sum_{i > nin}
+    w_i ABC_i) / delta + s a + r b - r s delta' (``at_t``: ``qap_at_t``), where
+    h(t) Z(t) = A(t) B(t) - C(t) stands for the H query's sum.  Returns
+    (a, b, c)."""
+    rr = model.Fr.p
+    dl = keys["delta"] * d % rr
+    htlt = (at_t["A"] * at_t["B"] - at_t["C"] + at_t["L"]) * pow(keys["delta"], -1, rr) % rr
+    a = (keys["alpha"] + at_t["A"] + r * dl) % rr
+    b = (keys["beta"] + at_t["B"] + s * dl) % rr
+    return a, b, (htlt * pow(d, -1, rr) + s * a + r * b - r * s * dl) % rr
+
+
+def check_witness_map(model, cs, ex, n: int, keys: dict, at_t: dict, rng):
+    """``witness_map`` at full size: without the patch H[:, :n] is
+    ``compute_h`` of the same words and H[n] is 0; with random d1, d2, d3
+    (``witness_map_device`` on the same words), and without,
+    (A(t) + d1 Z(t)) (B(t) + d2 Z(t)) - (C(t) + d3 Z(t)) = H(t) Z(t) at the
+    key's random t, where this script's own Lagrange basis gave A(t), B(t),
+    C(t) and Z(t) (``host_keys``, ``qap_at_t``).  Returns seconds."""
+    Fr, p = model.Fr, model.Fr.p
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, H = qap.witness_map(model, cs, ex.primary_input, ex.auxiliary_input)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    aA, aB, aC = qap.assemble_abc_evaluations(cs, ex.primary_input, ex.auxiliary_input, Fr)
+    words = Fr.from_canonical(canonical_words(Fr, aA + aB + aC))
+    del aA, aB, aC
+    ca, cb, cc = (words[:, k * n : (k + 1) * n].contiguous() for k in range(3))
+    del words
+    if not torch.equal(H[:, :n], compute_h(model, get_evaluation_domain(Fr, n), ca, cb, cc)):
+        raise AssertionError(f"{model.name}: witness_map's H differs from compute_h's")
+    if bool(H[:, n].any()):
+        raise AssertionError(f"{model.name}: witness_map's top coefficient is not zero")
+    ds = tuple(rng.randrange(1, p) for _ in range(3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H_zk = qap.witness_map_device(model, ca, cb, cc, *ds)
+    torch.cuda.synchronize()
+    t_patched = time.perf_counter() - t0
+    del ca, cb, cc
+    t0 = time.perf_counter()
+    tau, z = keys["t"], keys["Zt"]
+    A, B, C = at_t["A"], at_t["B"], at_t["C"]
+    for h, (d1, d2, d3) in ((H, (0, 0, 0)), (H_zk, ds)):
+        acc = 0
+        for coeff in reversed(words_to_ints(Fr.to_canonical(h).cpu().numpy())):
+            acc = (acc * tau + coeff) % p
+        if acc * z % p != ((A + d1 * z) * (B + d2 * z) - (C + d3 * z)) % p:
+            raise AssertionError(f"{model.name}: witness map with d = {(d1, d2, d3) != (0, 0, 0)}"
+                                 ": H(t) Z(t) != A'(t) B'(t) - C'(t)")
+    return {"witness_map": t_map, "patched_device": t_patched,
+            "identity_check": time.perf_counter() - t0}
+
+
+def check_key_io(model, pk, vk, proof, workdir: Path):
+    """The full-size keys and the proof written through ``io.keys``, to a
+    file and back: the words and points read back equal, and writing what
+    was read gives the same bytes.  Returns (seconds, sizes)."""
+    secs, sizes = {}, {}
+    for name, write, read, obj in (
+            ("pk", key_io.write_proving_key,
+             lambda b: key_io.read_proving_key(b, model.device), pk),
+            ("vk", key_io.write_verification_key, key_io.read_verification_key, vk)):
+        path = workdir / f"{model.name}.{name}"
+        t0 = time.perf_counter()
+        data = write(obj)
+        path.write_bytes(data)
+        t1 = time.perf_counter()
+        back = read(path.read_bytes())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if name == "pk":
+            for key in ("A_query", "B_query_g2", "B_query_g1", "H_query", "L_query"):
+                if not all(torch.equal(a, b) for a, b in zip(getattr(pk, key), getattr(back, key))):
+                    raise AssertionError(f"{model.name}: {key} read back differs")
+            same = all(getattr(pk, k) == getattr(back, k) for k in (
+                "curve", "alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2"))
+        else:
+            same = back == vk
+        if not same or write(back) != data:
+            raise AssertionError(f"{model.name}: the {name} does not round-trip through io.keys")
+        secs[name] = {"write": t1 - t0, "read": t2 - t1}
+        sizes[name] = len(data)
+        path.unlink()
+        del data, back
+    if key_io.read_proof(proof.to_bytes(model), model.name) != proof:
+        raise AssertionError(f"{model.name}: the proof does not round-trip through io.keys")
+    return secs, sizes
+
+
+def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
+    """The blinded Groth16 prover at the key generation's size, on its
+    in-process proving key (``gen``) and the host's replay of its secrets
+    (``keys``): ``groth16_full.prover`` with the launch counts set to 0 just
+    before and read just after, its bytes against the host's MSM-free
+    bytes; ``verification_key`` + ``verifier_strong_IC`` accepting it and
+    rejecting a wrong input, a tampered A and a truncated input; the
+    witness map (``check_witness_map``); ``bg.prover`` with a random d != 1
+    against the host and ``bg.verifier_strong_IC``; ``kc_multi_exp_fused``
+    and ``kc_multi_exp`` over (B_query_g2, B_query_g1) against the prover's
+    B MSMs; the keys through ``io.keys``.  Returns the prover's launch and
+    lane counts."""
+    rr, ex, pk = model.Fr.p, gen.example, gen.pk
+    primary, aux = ex.primary_input, ex.auxiliary_input
+    g1s = keys["g1_scalar"]
+    g1b = lambda k: hc.g1.mul(k * g1s % rr, hc.g1_gen)
+    prof = Profiler(model.device, verbose=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_field.launches.clear()
+    cuda_field.launch_lanes.clear()
+    t0 = time.perf_counter()
+    proof = groth16_full.prover(model, pk, primary, aux, random.Random(seed), profiler=prof)
+    torch.cuda.synchronize()
+    t_prove = time.perf_counter() - t0
+    launches = dict(cuda_field.launches)
+    path_lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {hc.name} groth16 path: {missing}")
+
+    t0 = time.perf_counter()
+    at_t = qap_at_t(model, keys)
+    blind = random.Random(seed)
+    r, s = blind.randrange(rr), blind.randrange(rr)  # the prover's draws, in its order
+    a, b, c = blinded_scalars(model, keys, at_t, r, s)
+    want = wire_bytes(model, hc, g1b(a), hc.g2.mul(b, hc.g2_gen), g1b(c))
+    t_expected = time.perf_counter() - t0
+    got = proof.to_bytes(model)
+    got_sha, want_sha = hashlib.sha256(got).hexdigest(), hashlib.sha256(want).hexdigest()
+    if got != want:
+        raise AssertionError(f"{hc.name} blinded proof at d + 1 = {n} differs from the host's: "
+                             f"{got_sha} != {want_sha}")
+
+    t0 = time.perf_counter()
+    vk = groth16_full.verification_key(pk, gen.secrets)
+    t_vk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not groth16_full.verifier_strong_IC(vk, primary, proof):
+        raise AssertionError(f"{hc.name}: verifier_strong_IC rejects the card's proof")
+    t_verify = time.perf_counter() - t0
+    tampered = groth16_full.Proof(hc.g1.add(proof.g_A, hc.g1_gen), proof.g_B, proof.g_C)
+    for what, inputs, pf in (("input + 1", [(primary[0] + 1) % rr] + primary[1:], proof),
+                             ("tampered A", primary, tampered),
+                             ("truncated input", primary[:-1], proof)):
+        if groth16_full.verifier_strong_IC(vk, inputs, pf):
+            raise AssertionError(f"{hc.name}: verifier_strong_IC accepts a proof with {what}")
+
+    wm_seconds = check_witness_map(model, pk.constraint_system, ex, n, keys, at_t,
+                                   random.Random(seed))
+
+    d = random.Random(seed).randrange(2, rr)
+    bg_prof = Profiler(model.device, verbose=False)
+    t0 = time.perf_counter()
+    bg_proof = bg.prover(model, pk, d, primary, aux, random.Random(seed + 1), profiler=bg_prof)
+    torch.cuda.synchronize()
+    t_bg = time.perf_counter() - t0
+    blind = random.Random(seed + 1)
+    r, s = blind.randrange(rr), blind.randrange(rr)
+    ba, bb, bc = blinded_scalars(model, keys, at_t, r, s, d)
+    want_bg = (g1b(ba), hc.g2.mul(bb, hc.g2_gen), g1b(bc), hc.g2.mul(keys["delta"] * d % rr,
+                                                                     hc.g2_gen))
+    if (bg_proof.g_A, bg_proof.g_B, bg_proof.g_C, bg_proof.delta_prime) != want_bg:
+        raise AssertionError(f"{hc.name}: the BG proof differs from the host's scalars")
+    t0 = time.perf_counter()
+    if not bg.verifier_strong_IC(vk, primary, bg_proof):
+        raise AssertionError(f"{hc.name}: bg.verifier_strong_IC rejects the card's BG proof")
+    t_bg_verify = time.perf_counter() - t0
+
+    # the knowledge commitment over (B_query_g2, B_query_g1), fused and not
+    Fr, G1, G2 = model.Fr, model.G1, model.G2
+    kc = KCVector(g=G2.from_affine(*pk.B_query_g2), h=G1.from_affine(*pk.B_query_g1))
+    w_can = canonical_words(Fr, keys["w"])
+    kc_secs, kc_out = {}, {}
+    for name, fn in (("fused", kc_multi_exp_fused), ("separate", kc_multi_exp)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g, h = fn(G2, G1, kc, w_can)
+        torch.cuda.synchronize()
+        kc_secs[name] = time.perf_counter() - t0
+        kc_out[name] = (_g2_proj_to_host(model, g), _g1_proj_to_host(model, h))
+    del kc, w_can
+    # the prover's own B MSMs, B - beta - s delta in G2 and in G1
+    _, r0, s0, _, g1_B, _ = proof.extras
+    from_proof = (hc.g2.add(proof.g_B, hc.g2.neg(hc.g2.add(pk.beta_g2, hc.g2.mul(s0, pk.delta_g2)))),
+                  hc.g1.add(g1_B, hc.g1.neg(hc.g1.add(pk.beta_g1, hc.g1.mul(s0, pk.delta_g1)))))
+    Bt = at_t["B"]
+    if not kc_out["fused"] == kc_out["separate"] == from_proof == (hc.g2.mul(Bt, hc.g2_gen),
+                                                                     g1b(Bt)):
+        raise AssertionError(f"{hc.name}: kc_multi_exp_fused differs from the prover's B MSMs")
+
+    key_seconds, key_bytes = check_key_io(model, pk, vk, proof, workdir)
+    emit("groth16", curve=hc.name, d=n - 1, m=n, proof_sha256=got_sha, proof_equal=True,
+         verifier={"accepts": True, "rejects": ["input + 1", "tampered A", "truncated input"]},
+         witness_map={"equal_to_compute_h": True, "identity_at_random_tau": ["plain", "patched"]},
+         bg={"equal": True, "verified": True}, kc_fused_equal=True,
+         seconds={"prove": t_prove, **dict(prof.cumulative), "verification_key": t_vk,
+                  "verify": t_verify, "bg_prove": t_bg, "bg_verify": t_bg_verify,
+                  "bg_phases": dict(bg_prof.cumulative), "kc_multi_exp": kc_secs,
+                  "keys": key_seconds, "witness_map_checks": wm_seconds},
+         host_seconds={"expected_proof": t_expected}, key_bytes=key_bytes,
+         peak_device_bytes=peak, launches=launches,
+         lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
+                for k, v in path_lanes.items()})
     return launches, path_lanes
+
+
+def shape_picks(lanes: dict) -> dict:
+    """A path's lane counts cut to what ``check_kernels_at_path_shapes``
+    times: the doublings at their largest and commonest (lanes, k)."""
+    out = dict(lanes)
+    for name in (k for k in lanes if k.startswith("ec_dbl")):
+        seen = lanes[name]
+        picks = [max(seen, key=lambda s: (s[0] * s[1], s)), max(seen, key=lambda s: (seen[s], s))]
+        out[name] = {s: seen[s] for s in picks}
+    return out
 
 
 def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     """All phases of one curve.  Returns the launch counts of its largest
     prove and the kernels' numbers at that prove's lane counts, then the
-    same for its key generation."""
+    same for its key generation and for its blinded Groth16 prove."""
     model = MODELS[curve].get("cuda")
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
@@ -1020,15 +1284,19 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs)
     torch.cuda.empty_cache()
 
-    kg_launches, kg_lanes = keygen(model, hc, workdir, args.keygen[curve], args.seed)
+    kg_launches, kg_lanes, gen, keys = keygen(model, hc, workdir, args.keygen[curve], args.seed)
     torch.cuda.empty_cache()
-    for name in (k for k in kg_lanes if k.startswith("ec_dbl")):  # the largest and commonest
-        seen = kg_lanes[name]
-        picks = [max(seen, key=lambda s: (s[0] * s[1], s)), max(seen, key=lambda s: (seen[s], s))]
-        kg_lanes[name] = {s: seen[s] for s in picks}
-    kg_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, kg_lanes, errs,
-                                             phase="kernels_at_keygen_shapes")
-    return launches, report, kg_launches, kg_report
+    kg_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, shape_picks(kg_lanes),
+                                             errs, phase="kernels_at_keygen_shapes")
+    torch.cuda.empty_cache()
+
+    g16_launches, g16_lanes = groth16(model, hc, workdir, args.keygen[curve], args.seed, gen, keys)
+    del gen, keys
+    torch.cuda.empty_cache()
+    g16_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng,
+                                              shape_picks(g16_lanes), errs,
+                                              phase="kernels_at_groth16_shapes")
+    return launches, report, (kg_launches, kg_report), (g16_launches, g16_report)
 
 
 def main(argv=None) -> int:
@@ -1085,10 +1353,11 @@ def main(argv=None) -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # one entry per kernel: its numbers from the first curve whose path runs it,
-    # and under "also" those of a later curve that runs it with other moduli and lanes
-    # and under "keygen" its numbers on each curve's key generation path
+    # and under "also" those of a later curve that runs it with other moduli and lanes;
+    # under "keygen" and "groth16" its numbers on each curve's key generation and
+    # blinded prove
     kernels = {}
-    for curve, (launches, report, kg_launches, kg_report) in results.items():
+    for curve, (launches, report, kg, g16) in results.items():
         for name, r in report.items():
             entry = {"curve": curve, "launches": launches[name], **r}
             if name in kernels:
@@ -1098,9 +1367,10 @@ def main(argv=None) -> int:
                 kernels[name] = {"name": name, "route": "cuda", "source": source,
                                  "replaces": replaces, "max_abs_err": errs[name],
                                  "library_ms": None, **entry}
-            kernels[name].setdefault("keygen", []).append(
-                {"curve": curve, "d_plus_1": args.keygen[curve], "launches": kg_launches[name],
-                 **kg_report[name]})
+            for key, (path_launches, path_report) in (("keygen", kg), ("groth16", g16)):
+                kernels[name].setdefault(key, []).append(
+                    {"curve": curve, "d_plus_1": args.keygen[curve],
+                     "launches": path_launches[name], **path_report[name]})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,19 +22,35 @@ import argparse
 import random
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from .io import serialization as ser
-from .proof_systems.groth16_full import canonical_words, proving_key
+from .ops.field import canonical_words
+from .proof_systems.groth16_full import KeySecrets, ProvingKey, proving_key
 from .reductions.r1cs_to_qap import assemble_abc_evaluations
-from .relations.examples import generate_r1cs_example_with_field_input
+from .relations.examples import R1CSExample, generate_r1cs_example_with_field_input
 from .utils.profiling import Profiler
 
 
-def generate_for_curve(model, log2_d: int, rng, outdir: Path, profiler: Profiler | None = None):
-    """Writes the two files of d + 1 = 2^log2_d for the model's curve;
-    returns their paths.  Phases (``profiler``): "example", then those of
+class Generated(NamedTuple):
+    """What ``generate_for_curve`` made: the two files, and the proving key,
+    the secrets ``groth16_full.verification_key`` needs and the example
+    (constraint system and assignment), which a caller may go on to prove
+    and verify with."""
+
+    params_path: Path
+    input_path: Path
+    pk: ProvingKey
+    secrets: KeySecrets
+    example: R1CSExample
+
+
+def generate_for_curve(model, log2_d: int, rng, outdir: Path,
+                       profiler: Profiler | None = None) -> Generated:
+    """Writes the two files of d + 1 = 2^log2_d for the model's curve.
+    Phases (``profiler``): "example", then those of
     ``groth16_full.proving_key``, then "write".  The files need no
     verification key, so none is made."""
     prof = profiler if profiler is not None else Profiler(model.device)
@@ -45,7 +61,7 @@ def generate_for_curve(model, log2_d: int, rng, outdir: Path, profiler: Profiler
     ex = generate_r1cs_example_with_field_input(p, d - 1, 1, rng)
     prof.leave_block("example")
     cs = ex.constraint_system
-    pk, _ = proving_key(model, cs, rng, prof)
+    pk, secrets = proving_key(model, cs, rng, prof)
     m = cs.num_variables
     if m != d + 1:  # d - 1 constraints and one input: m = d + 1 (generate_parameters.cpp:38)
         raise RuntimeError(f"m = {m}, d + 1 = {d + 1} expected")
@@ -66,7 +82,7 @@ def generate_for_curve(model, log2_d: int, rng, outdir: Path, profiler: Profiler
     input_path = Path(outdir) / f"{model.name}-input"
     ser.write_input(input_path, *(words[:, a:b] for a, b in zip(ends, ends[1:])))
     prof.leave_block("write")
-    return params_path, input_path
+    return Generated(params_path, input_path, pk, secrets, ex)
 
 
 def main(argv=None) -> int:
@@ -95,8 +111,8 @@ def main(argv=None) -> int:
         jobs.append((mnt6753, log6))
     for module, lg in jobs:
         model = module.get(args.device)
-        pp, ip = generate_for_curve(model, lg, rng, outdir)
-        print(f"{model.name}: wrote {pp} and {ip}")
+        out = generate_for_curve(model, lg, rng, outdir)
+        print(f"{model.name}: wrote {out.params_path} and {out.input_path}")
     return 0
 
 

@@ -4,7 +4,7 @@ The JAX package's readers return 16-bit limb planes (``uint32[48, N]``,
 ``(deg, 48, N)`` for G2 coordinates); the port works on 32-bit words
 (``int32[24, N]``).  Both are the same little-endian bytes, so the
 conversion is a regrouping and is exact in both directions.  Constraint
-systems and proving keys carry over with the same terms and points.
+systems, keys and proofs carry over with the same terms and points.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from .io.serialization import Groth16Input, Groth16Params
 from .ops.limbs import planes16_to_words, to_planes16
-from .proof_systems.groth16_full import ProvingKey
+from .proof_systems.groth16_full import Proof, ProvingKey, VerificationKey
 from .relations.r1cs import LinearCombination, R1CSConstraint, R1CSConstraintSystem
 
 
@@ -71,3 +71,15 @@ def proving_key_from_jax(ref, device) -> ProvingKey:
         B_query_g2=pair(ref.B_query_g2), B_query_g1=pair(ref.B_query_g1),
         H_query=pair(ref.H_query), L_query=pair(ref.L_query),
         constraint_system=r1cs_from_reference(ref.constraint_system))
+
+
+def verification_key_from_jax(ref) -> VerificationKey:
+    """The JAX package's ``VerificationKey`` -> the port's: both hold host
+    integers (the GT element as a pair of component tuples), so this copies."""
+    return VerificationKey(curve=ref.curve, alpha_g1_beta_g2=ref.alpha_g1_beta_g2,
+                           delta_g2=ref.delta_g2, ABC_g1=list(ref.ABC_g1))
+
+
+def proof_from_jax(ref) -> Proof:
+    """The JAX package's ``Proof`` -> the port's (host affine integers in both)."""
+    return Proof(g_A=ref.g_A, g_B=ref.g_B, g_C=ref.g_C)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..models.primes import PrimeSpec
-from ..utils.bigint import int_to_words
+from ..utils.bigint import int_to_words, ints_to_words
 from . import limbs as lb
 from .cuda_field import mont_mul, mont_mul_plain
 
@@ -31,6 +31,12 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())  # tensors report cuda:N
     return dev
+
+
+def canonical_words(F: "Fp", values) -> torch.Tensor:
+    """Canonical host integers -> their words (24, len) on F's device; the
+    Montgomery form is one ``F.from_canonical`` away, on the device."""
+    return torch.from_numpy(ints_to_words(values)).to(F.device)
 
 
 class Fp:

@@ -9,10 +9,12 @@
     C      = Ht + Lt + r * Bt1
     proof  = (At affine, Bt2 affine, C affine)  # 96-byte Montgomery LE
 
-The FFT stack, the four G1 MSMs (one batched staged MSM) and the G2 MSM
-run on the model's device.  The O(1) tail (C, affine conversion, byte
-packing) runs on host exact integers: affine coordinates are the unique
-canonical representatives either way.
+The FFT stack (``reductions.r1cs_to_qap.quotient_coefficients``), the four
+G1 MSMs (one batched staged MSM) and the G2 MSM (``groth16_msms``, which
+the blinded prover of ``groth16_full`` shares) run on the model's device.
+The O(1) tail (C, affine conversion, byte packing) runs on host exact
+integers: affine coordinates are the unique canonical representatives
+either way.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..host.curves import host_curve
 from ..io import serialization as ser
 from ..ops import msm as msm_mod
 from ..ops.fft import get_evaluation_domain
+from ..reductions.r1cs_to_qap import quotient_coefficients
 from ..utils.bigint import int_to_words, words_to_ints
 from ..utils.profiling import Profiler
 
@@ -32,14 +35,7 @@ def compute_h(model, domain, ca, cb, cc):
     """The FFT dance (main.cpp:105-163): evaluations of A, B, C on the
     domain -> coefficients of the quotient H, shape (24, d+1), of which
     the prover consumes the first d (main.cpp:243)."""
-    F = model.Fr
-    a = domain.coset_fft(domain.ifft(ca))
-    b = domain.coset_fft(domain.ifft(cb))
-    hab = F.mul(a, b)
-    del a, b
-    h = F.sub(hab, domain.coset_fft(domain.ifft(cc)))
-    h = domain.divide_by_z_on_coset(h)
-    return domain.icoset_fft(h)
+    return quotient_coefficients(model.Fr, domain, ca, cb, cc)
 
 
 def _first_int(spec, words: torch.Tensor) -> int:
@@ -66,6 +62,56 @@ def _g2_proj_to_host(model, P):
         return None
     zi = F.inv(Z)
     return (F.mul(X, zi), F.mul(Y, zi))
+
+
+def groth16_msms(model, A, B1, B2, H, L, w_can, h_can, num_inputs: int,
+                 msm_window: int | None, prof: Profiler):
+    """The five MSMs of a Groth16 prove on the model's device: the four G1
+    MSMs (A, B1 and H over w, H over the quotient's coefficients, L over
+    the auxiliary part of w) as one staged multi-MSM, then the G2 MSM (B2
+    over w).  A, B1, B2, H, L: affine (x, y) Montgomery query words; w_can
+    = (1, assignment) and h_can = H[:, :n - 1], canonical words.  Phases
+    "G1 multiexp x4" and "G2 multiexp".  Returns the projective results,
+    batch (4,) in the order A, B1, H, L, and batch ()."""
+    G1, G2 = model.G1, model.G2
+    prof.enter_block("G1 multiexp x4")
+    pts4, scal4 = msm_mod.pad_and_stack(
+        G1, [G1.from_affine(x, y) for x, y in (A, B1, H, L)],
+        [w_can, w_can, h_can, w_can[:, num_inputs + 1 :]])
+    g1_res = msm_mod.msm_multi_staged(G1, pts4, scal4, msm_window)
+    del pts4, scal4
+    prof.leave_block("G1 multiexp x4")
+    prof.enter_block("G2 multiexp")
+    g2_res = msm_mod.msm_staged(G2, G2.from_affine(*B2), w_can, msm_window)
+    prof.leave_block("G2 multiexp")
+    return g1_res, g2_res
+
+
+def msm_results_to_host(model, g1_res, g2_res):
+    """``groth16_msms``'s results -> host affine (At, Bt1, Ht, Lt, Bt2)."""
+    At, Bt1, Ht, Lt = (_g1_proj_to_host(model, tuple(t[..., i] for t in g1_res))
+                       for i in range(4))
+    return At, Bt1, Ht, Lt, _g2_proj_to_host(model, g2_res)
+
+
+def g1_words(model, P):
+    """Host affine G1 point (None: the identity) -> (x, y, z) Montgomery words."""
+    if P is None:
+        z = np.zeros(24, np.int32)
+        return (z, z, z)
+    to_mont = model.Fq.spec.to_mont
+    return tuple(int_to_words(to_mont(v)) for v in (P[0], P[1], 1))
+
+
+def g2_words(model, P):
+    """Host affine G2 point -> (x, y, z), each (deg, 24) Montgomery words."""
+    deg = model.g2_deg
+    if P is None:
+        z = np.zeros((deg, 24), np.int32)
+        return (z, z, z)
+    to_mont = model.Fq.spec.to_mont
+    one = (1,) + (0,) * (deg - 1)
+    return tuple(np.stack([int_to_words(to_mont(c)) for c in t]) for t in (P[0], P[1], one))
 
 
 class ChallengeProver:
@@ -114,7 +160,7 @@ class ChallengeProver:
         are copied there) -> affine proof (A, B, C) as host word arrays."""
         model = self.model
         prof = self.profiler
-        Fr, G1, G2 = model.Fr, model.G1, model.G2
+        Fr = model.Fr
         d = params.d
         dev = model.device
 
@@ -133,46 +179,15 @@ class ChallengeProver:
         del h, domain
         prof.leave_block("compute H")
 
-        prof.enter_block("G1 multiexp x4")
-        pts4, scal4 = msm_mod.pad_and_stack(
-            G1,
-            [G1.from_affine(up(x), up(y)) for x, y in (params.A, params.B1, params.H, params.L)],
-            [w_can, w_can, h_can, w_can[:, 2:]],  # primary_input_size == 1
-        )
-        g1_res = msm_mod.msm_multi_staged(G1, pts4, scal4, self.msm_window)
-        del pts4, scal4
-        prof.leave_block("G1 multiexp x4")
-
-        prof.enter_block("G2 multiexp")
-        g2_res = msm_mod.msm_staged(
-            G2, G2.from_affine(up(params.B2[0]), up(params.B2[1])), w_can, self.msm_window
-        )
-        prof.leave_block("G2 multiexp")
+        g1_res, g2_res = groth16_msms(
+            model, *((up(x), up(y)) for x, y in (params.A, params.B1, params.B2, params.H,
+                                                  params.L)),
+            w_can, h_can, 1, self.msm_window, prof)  # primary_input_size == 1
 
         prof.enter_block("assemble proof (host)")
         hc = host_curve(model.name)
-        At, Bt1, Ht, Lt = (
-            _g1_proj_to_host(model, tuple(t[..., i] for t in g1_res)) for i in range(4)
-        )
-        Bt2 = _g2_proj_to_host(model, g2_res)
+        At, Bt1, Ht, Lt, Bt2 = msm_results_to_host(model, g1_res, g2_res)
         r_int = _first_int(Fr.spec, up(inp.r))
         C = hc.g1.add(hc.g1.add(Ht, Lt), hc.g1.mul(r_int, Bt1))
         prof.leave_block("assemble proof (host)")
-
-        to_mont = model.Fq.spec.to_mont
-
-        def g1_words(P):
-            if P is None:
-                z = np.zeros(24, np.int32)
-                return (z, z, z)
-            return tuple(int_to_words(to_mont(v)) for v in (P[0], P[1], 1))
-
-        def g2_words(P):
-            deg = model.g2_deg
-            if P is None:
-                z = np.zeros((deg, 24), np.int32)
-                return (z, z, z)
-            one = (1,) + (0,) * (deg - 1)
-            return tuple(np.stack([int_to_words(to_mont(c)) for c in t]) for t in (P[0], P[1], one))
-
-        return (g1_words(At), g2_words(Bt2), g1_words(C))
+        return (g1_words(model, At), g2_words(model, Bt2), g1_words(model, C))

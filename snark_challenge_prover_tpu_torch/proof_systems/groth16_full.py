@@ -1,8 +1,9 @@
-"""Full Groth16 (r1cs_gg_ppzksnark): the key generator.
+"""Full Groth16 (r1cs_gg_ppzksnark): key generator, blinded prover, verifiers.
 
-Counterpart of ``generator`` and the key containers of the JAX package's
-``proof_systems/groth16_full.py`` (libsnark r1cs_gg_ppzksnark.tcc:207-380):
-sample t, alpha, beta, delta; evaluate the QAP at t
+Counterpart of the JAX package's ``proof_systems/groth16_full.py``
+(libsnark r1cs_gg_ppzksnark.{hpp,tcc}).
+
+The generator (tcc:207-380): sample t, alpha, beta, delta; evaluate the QAP at t
 (``reductions.r1cs_to_qap.instance_map_with_evaluation``, host); build the
 A, B, L and H queries by fixed-base exponentiation on the model's device
 (``ops.fixed_base``), the four G1 queries through one window table and one
@@ -17,24 +18,38 @@ calls.
 The scalars are made on the device from the host's canonical words: ABC_i
 = beta A_i(t) + alpha B_i(t) + C_i(t), L_i = ABC_i / delta for the
 auxiliary variables and H_i = t^i Z(t) / delta, t^i by ``ops.fft.power_table``.
-The blinded prover and the verifiers are not ported yet.
+
+The prover (tcc:382-497): the QAP witness map on the device
+(``reductions.r1cs_to_qap.witness_map``), the five MSMs that the challenge
+prover runs (``groth16.groth16_msms``), and the blinding on the host's
+exact integers, r and s drawn from the caller's generator:
+
+    A = alpha + sum a_i A_i(t) + r delta
+    B = beta  + sum a_i B_i(t) + s delta     (in G1 and G2)
+    C = Ht + Lt + s A + r B - r s delta.
+
+The verifiers (tcc:499-672) run on the host with ``AtePairing``: the inputs
+accumulated over ABC, the proof's points on the curve, and
+e(A, B) = e(alpha, beta) e(acc, G2) e(C, delta).  A proof's bytes are the
+challenge's wire format.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
 from ..host.curves import host_curve
+from ..io import serialization as ser
 from ..ops import fixed_base
 from ..ops.fft import power_table
+from ..ops.field import canonical_words
 from ..reductions import r1cs_to_qap as qap
 from ..relations.r1cs import R1CSConstraintSystem
-from ..utils.bigint import ints_to_words
 from ..utils.profiling import Profiler
 from .ate_pairing import AtePairing
-from .groth16 import _g1_proj_to_host
+from .groth16 import _g1_proj_to_host, g1_words, g2_words, groth16_msms, msm_results_to_host
 
 
 @dataclass
@@ -68,9 +83,31 @@ class VerificationKey:
     ABC_g1: list             # [ABC_0, ..., ABC_num_inputs] host affine
 
 
-def canonical_words(F, values) -> torch.Tensor:
-    """Canonical host integers -> their words (24, len) on F's device."""
-    return torch.from_numpy(ints_to_words(values)).to(F.device)
+@dataclass
+class Proof:
+    """pi = (A in G1, B in G2, C in G1) as host affine integers (hpp:262-320).
+    ``extras`` holds the prover's (Ht + Lt, r, s, A, B in G1, delta_g1), which
+    ``bg.prover`` needs to rescale C; it takes no part in equality."""
+
+    g_A: tuple
+    g_B: tuple
+    g_C: tuple
+    extras: tuple | None = field(default=None, compare=False, repr=False)
+
+    def to_bytes(self, model) -> bytes:
+        """The challenge's wire format: A, B, C affine, Montgomery, 96 bytes
+        a coordinate, the identity as zeros."""
+        w = ser.Writer()
+        w.g1(*g1_words(model, self.g_A))
+        w.g2(*g2_words(model, self.g_B))
+        w.g1(*g1_words(model, self.g_C))
+        return w.bytes()
+
+
+@dataclass
+class Keypair:
+    pk: ProvingKey
+    vk: VerificationKey
 
 
 def _wire_affine(curve, P):
@@ -170,3 +207,112 @@ def verification_key(pk: ProvingKey, secrets: KeySecrets) -> VerificationKey:
                            delta_g2=pk.delta_g2,
                            ABC_g1=[hc.g1.mul(v, secrets.g1_base) for v in secrets.abc])
 
+
+
+def generator(model, cs: R1CSConstraintSystem, rng) -> Keypair:
+    """r1cs_gg_ppzksnark_generator (tcc:207-380): ``proving_key`` and then
+    ``verification_key``, drawing from ``rng`` as the JAX package's does."""
+    pk, secrets = proving_key(model, cs, rng)
+    return Keypair(pk, verification_key(pk, secrets))
+
+
+# ---------------------------------------------------------------------------
+# prover
+# ---------------------------------------------------------------------------
+
+def prover(model, pk: ProvingKey, primary, auxiliary, rng, msm_window: int | None = None,
+           profiler: Profiler | None = None) -> Proof:
+    """r1cs_gg_ppzksnark_prover (tcc:382-497), blinding included: r, then
+    s, each ``rng.randrange(r)`` (zero allowed), as the JAX package draws
+    them.  An assignment that does not satisfy the key's constraints
+    raises ValueError.  Phases (``profiler``): "witness map",
+    "G1 multiexp x4", "G2 multiexp", "assemble proof (host)"."""
+    prof = profiler if profiler is not None else Profiler(model.device, verbose=False)
+    Fr = model.Fr
+    cs = pk.constraint_system
+    r_p = Fr.p
+    if not cs.is_satisfied(primary, auxiliary):
+        raise ValueError("the assignment does not satisfy the constraint system")
+
+    prof.enter_block("witness map")
+    full, H = qap.witness_map(model, cs, primary, auxiliary)
+    n = H.shape[1] - 1
+    r = rng.randrange(r_p)
+    s = rng.randrange(r_p)
+    w_can = canonical_words(Fr, [1] + [v % r_p for v in full])
+    h_can = Fr.to_canonical(H[:, : n - 1])
+    del H
+    prof.leave_block("witness map")
+
+    g1_res, g2_res = groth16_msms(model, pk.A_query, pk.B_query_g1, pk.B_query_g2, pk.H_query,
+                                  pk.L_query, w_can, h_can, cs.primary_input_size, msm_window,
+                                  prof)
+
+    prof.enter_block("assemble proof (host)")
+    hc = host_curve(model.name)
+    g1, g2 = hc.g1, hc.g2
+    At, Bt1, Ht, Lt, Bt2 = msm_results_to_host(model, g1_res, g2_res)
+    g1_A = g1.add(g1.add(pk.alpha_g1, At), g1.mul(r, pk.delta_g1))
+    g1_B = g1.add(g1.add(pk.beta_g1, Bt1), g1.mul(s, pk.delta_g1))
+    g2_B = g2.add(g2.add(pk.beta_g2, Bt2), g2.mul(s, pk.delta_g2))
+    HtLt = g1.add(Ht, Lt)
+    g1_C = g1.add(g1.add(HtLt, g1.mul(s, g1_A)),
+                  g1.add(g1.mul(r, g1_B), g1.neg(g1.mul(r * s % r_p, pk.delta_g1))))
+    prof.leave_block("assemble proof (host)")
+    return Proof(g_A=g1_A, g_B=g2_B, g_C=g1_C, extras=(HtLt, r, s, g1_A, g1_B, pk.delta_g1))
+
+
+# ---------------------------------------------------------------------------
+# verifiers
+# ---------------------------------------------------------------------------
+
+def verifier_process_vk(vk: VerificationKey) -> VerificationKey:
+    """The processed key (tcc:499-512): the host pairing precomputes nothing
+    across proofs, so it is the key itself."""
+    return vk
+
+
+def input_accumulator(hc, ABC_g1: list, primary):
+    """ABC_0 + sum_i x_i ABC_{i+1}; more inputs than the key has raise."""
+    if len(primary) > len(ABC_g1) - 1:
+        raise ValueError(f"{len(primary)} inputs, the key has {len(ABC_g1) - 1}")
+    acc = ABC_g1[0]
+    for v, P in zip(primary, ABC_g1[1:]):
+        acc = hc.g1.add(acc, hc.g1.mul(v % hc.fr_spec.p, P))
+    return acc
+
+
+def online_verifier_weak_IC(vk: VerificationKey, primary, proof: Proof) -> bool:
+    """tcc:515-566: the inputs accumulated, the proof's points on the curve,
+    and e(A, B) = e(alpha, beta) e(acc, G2) e(C, delta)."""
+    hc = host_curve(vk.curve)
+    acc = input_accumulator(hc, vk.ABC_g1, primary)
+    for P, group in ((proof.g_A, hc.g1), (proof.g_B, hc.g2), (proof.g_C, hc.g1)):
+        if not group.is_on_curve(P):
+            return False
+    engine = AtePairing(hc)
+    gt = engine.GT
+    rhs = gt.mul(vk.alpha_g1_beta_g2, gt.mul(engine.reduced_pairing(acc, hc.g2_gen),
+                                             engine.reduced_pairing(proof.g_C, vk.delta_g2)))
+    return engine.reduced_pairing(proof.g_A, proof.g_B) == rhs
+
+
+def online_verifier_strong_IC(vk: VerificationKey, primary, proof: Proof) -> bool:
+    """tcc:583-607: the weak check with exactly as many inputs as the key."""
+    if len(vk.ABC_g1) - 1 != len(primary):
+        return False
+    return online_verifier_weak_IC(vk, primary, proof)
+
+
+def verifier_weak_IC(vk: VerificationKey, primary, proof: Proof) -> bool:
+    return online_verifier_weak_IC(verifier_process_vk(vk), primary, proof)
+
+
+def verifier_strong_IC(vk: VerificationKey, primary, proof: Proof) -> bool:
+    return online_verifier_strong_IC(verifier_process_vk(vk), primary, proof)
+
+
+# the affine variants (tcc:609-672) differ from these only in the pairing's
+# internals; the host pairing has one form
+affine_verifier_weak_IC = verifier_weak_IC
+affine_verifier_strong_IC = verifier_strong_IC

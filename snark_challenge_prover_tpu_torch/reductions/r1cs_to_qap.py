@@ -1,25 +1,34 @@
-"""R1CS -> QAP reduction, the key generator's side, on the host.
+"""R1CS -> QAP reduction.
 
 Counterpart of the JAX package's ``reductions/r1cs_to_qap.py``
 (libsnark r1cs_to_qap.tcc):
 
-  * ``instance_map_with_evaluation`` (tcc:105-177): every QAP polynomial
-    A_i, B_i, C_i evaluated at the secret point t through the domain's
-    Lagrange basis, and Z(t), as exact integers;
+  * ``instance_map_with_evaluation`` (tcc:105-177, the key generator's
+    side, host): every QAP polynomial A_i, B_i, C_i evaluated at the
+    secret point t through the domain's Lagrange basis, and Z(t), as
+    exact integers;
   * ``assemble_abc_evaluations`` (tcc:225-238 and the aC loop at
-    :286-291): the evaluations of A, B and C on the domain for an
-    assignment, which the challenge's input file carries.
+    :286-291, host): the evaluations of A, B and C on the domain for an
+    assignment, which the challenge's input file carries;
+  * ``witness_map`` (tcc:206-340, the prover's side): those evaluations
+    as words on the model's device, then ``witness_map_device``: the FFT
+    dance iFFT -> cosetFFT -> pointwise -> divide by Z -> icosetFFT
+    (``quotient_coefficients``, which the challenge prover's ``compute_h``
+    shares) and the optional zero-knowledge patch d2 A + d1 B - d3 +
+    d1 d2 Z, giving the n + 1 coefficients of H.
 
 The domain is the one the prover takes, ``get_domain_of_min_size`` of
-num_constraints + num_inputs + 1 points (tcc:119).  The prover's own
-``witness_map`` is not ported yet.
+num_constraints + num_inputs + 1 points (tcc:119).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..ops.fft import get_domain_of_min_size
+import torch
+
+from ..ops.fft import get_domain_of_min_size, get_evaluation_domain, host_table
+from ..ops.field import canonical_words
 from ..relations.r1cs import R1CSConstraintSystem
 
 
@@ -89,3 +98,59 @@ def assemble_abc_evaluations(cs: R1CSConstraintSystem, primary, auxiliary, F):
         aB[i] = cons.b.evaluate(assignment, p)
         aC[i] = cons.c.evaluate(assignment, p)
     return aA, aB, aC
+
+
+def quotient_coefficients(F, domain, ca, cb, cc):
+    """The FFT dance (tcc:243-330, main.cpp:105-163): the evaluations of
+    A, B and C on the domain, Montgomery words (24, n) -> the n
+    coefficients of H = (A B - C) / Z, computed on the coset, where Z does
+    not vanish."""
+    a = domain.coset_fft(domain.ifft(ca))
+    b = domain.coset_fft(domain.ifft(cb))
+    hab = F.mul(a, b)
+    del a, b
+    h = F.sub(hab, domain.coset_fft(domain.ifft(cc)))
+    del hab
+    return domain.icoset_fft(domain.divide_by_z_on_coset(h))
+
+
+def witness_map_device(model, ca, cb, cc, d1: int = 0, d2: int = 0, d3: int = 0):
+    """The evaluations of A, B and C on the domain (Montgomery words (24, n)
+    on the model's device) -> H's n + 1 coefficients (24, n + 1), the top
+    one zero unless the zero-knowledge patch adds d1 d2 there.  With any of
+    d1, d2, d3 nonzero, H gains d2 A + d1 B - d3 + d1 d2 Z (coefficient
+    form, tcc:298-330), Z the domain's own vanishing polynomial
+    (``add_poly_Z``), so every domain kind gets its own, not x^n - 1."""
+    F = model.Fr
+    p = F.p
+    n = ca.shape[1]
+    domain = get_evaluation_domain(F, n)
+    H = quotient_coefficients(F, domain, ca, cb, cc)
+    z = [0] * (n + 1)
+    if d1 % p or d2 % p or d3 % p:
+        patch = F.add(F.mul_const(domain.ifft(ca), F.const(d2)),
+                      F.mul_const(domain.ifft(cb), F.const(d1)))
+        domain.add_poly_Z(d1 * d2 % p, z)
+        z[0] = (z[0] - d3) % p
+        cols = [k for k in range(n) if z[k]]
+        if cols:
+            idx = torch.tensor(cols, device=F.device)
+            patch[:, idx] = F.add(patch[:, idx], host_table(F, [z[k] for k in cols]))
+        H = F.add(H, patch)
+    return torch.cat([H, host_table(F, [z[n]])], dim=1)
+
+
+def witness_map(model, cs: R1CSConstraintSystem, primary, auxiliary,
+                d1: int = 0, d2: int = 0, d3: int = 0):
+    """r1cs_to_qap_witness_map (tcc:206-340): (the full assignment,
+    primary then auxiliary, and H's coefficients (24, n + 1) in Montgomery
+    form on the model's device).  A, B and C on the domain are made on the
+    host as canonical integers and turned into Montgomery words on the
+    device."""
+    F = model.Fr
+    aA, aB, aC = assemble_abc_evaluations(cs, primary, auxiliary, F)
+    n = len(aA)
+    words = F.from_canonical(canonical_words(F, aA + aB + aC))
+    ca, cb, cc = (words[:, k * n : (k + 1) * n].contiguous() for k in range(3))
+    del words
+    return list(primary) + list(auxiliary), witness_map_device(model, ca, cb, cc, d1, d2, d3)

@@ -37,6 +37,14 @@ class LinearCombination:
             acc += coeff * (1 if idx == 0 else assignment[idx - 1])
         return acc % p
 
+    def collate(self, p: int) -> dict:
+        """{index: coefficient mod p}, duplicate indices merged, zero
+        coefficients dropped."""
+        out: dict[int, int] = {}
+        for idx, coeff in self.terms:
+            out[idx] = (out.get(idx, 0) + coeff) % p
+        return {i: c for i, c in out.items() if c}
+
     def is_valid(self, num_variables: int) -> bool:
         return all(0 <= i <= num_variables for i, _ in self.terms)
 

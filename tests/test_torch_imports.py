@@ -28,7 +28,8 @@ def test_every_module_is_listed():
                  "models.mnt4753", "models.mnt6753", "ops.towers", "utils.profiling",
                  "ops.sequence_domains", "cli_generate_parameters", "ops.fixed_base",
                  "ops.frobenius", "proof_systems.ate_pairing", "proof_systems.groth16_full",
-                 "reductions.r1cs_to_qap", "relations.r1cs", "relations.examples"):
+                 "reductions.r1cs_to_qap", "relations.r1cs", "relations.examples",
+                 "proof_systems.knowledge_commitment", "proof_systems.bg", "io.keys"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
