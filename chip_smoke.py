@@ -44,11 +44,10 @@ drawn from the seed) with its launch counts, phase times and peak memory,
 its bytes held to bytes the host computes without any MSM; the
 verification key and ``verifier_strong_IC`` accepting the proof and
 rejecting a wrong input, a tampered A and a truncated input; the witness
-map against ``compute_h`` and, plain and with a random zero-knowledge patch,
-by the identity (A + d1 Z)(B + d2 Z) - (C + d3 Z) = H Z at a random point;
+map, plain and with a random zero-knowledge patch, by the identity (A + d1 Z)(B + d2 Z) - (C + d3 Z) = H Z at a random point;
 ``bg.prover`` with a random d against the host's scalars and its verifier;
-``kc_multi_exp_fused`` and ``kc_multi_exp`` against the prover's B MSMs,
-timed; the full-size keys and the proof through ``io.keys``, timed; and
+``kc_multi_exp_fused`` (which is ``kc_multi_exp``) against the prover's B
+MSMs, timed; the full-size keys and the proof through ``io.keys``, timed; and
 every kernel compared and timed at the blinded prove's lane counts.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
@@ -95,7 +94,7 @@ from snark_challenge_prover_tpu_torch.proof_systems import bg, groth16_full  # n
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
 from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import (  # noqa: E402
-    KCVector, kc_multi_exp, kc_multi_exp_fused)
+    KCVector, kc_multi_exp_fused)
 from snark_challenge_prover_tpu_torch.reductions import r1cs_to_qap as qap  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
     generate_r1cs_example_with_field_input)
@@ -1054,29 +1053,26 @@ def blinded_scalars(model, keys: dict, at_t: dict, r: int, s: int, d: int = 1):
 
 
 def check_witness_map(model, cs, ex, n: int, keys: dict, at_t: dict, rng):
-    """``witness_map`` at full size: without the patch H[:, :n] is
-    ``compute_h`` of the same words and H[n] is 0; with random d1, d2, d3
-    (``witness_map_device`` on the same words), and without,
-    (A(t) + d1 Z(t)) (B(t) + d2 Z(t)) - (C(t) + d3 Z(t)) = H(t) Z(t) at the
-    key's random t, where this script's own Lagrange basis gave A(t), B(t),
-    C(t) and Z(t) (``host_keys``, ``qap_at_t``).  Returns seconds."""
+    """The witness map at full size, on one set of A, B and C words:
+    ``witness_map_device`` without the patch leaves H[n] zero; with it and
+    with random d1, d2, d3, (A(t) + d1 Z(t)) (B(t) + d2 Z(t)) - (C(t) +
+    d3 Z(t)) = H(t) Z(t) at the key's random t, where this script's own
+    Lagrange basis gave A(t), B(t), C(t) and Z(t) (``host_keys``,
+    ``qap_at_t``).  Returns seconds."""
     Fr, p = model.Fr, model.Fr.p
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, H = qap.witness_map(model, cs, ex.primary_input, ex.auxiliary_input)
-    torch.cuda.synchronize()
-    t_map = time.perf_counter() - t0
     aA, aB, aC = qap.assemble_abc_evaluations(cs, ex.primary_input, ex.auxiliary_input, Fr)
     words = Fr.from_canonical(canonical_words(Fr, aA + aB + aC))
     del aA, aB, aC
     ca, cb, cc = (words[:, k * n : (k + 1) * n].contiguous() for k in range(3))
     del words
-    if not torch.equal(H[:, :n], compute_h(model, get_evaluation_domain(Fr, n), ca, cb, cc)):
-        raise AssertionError(f"{model.name}: witness_map's H differs from compute_h's")
-    if bool(H[:, n].any()):
-        raise AssertionError(f"{model.name}: witness_map's top coefficient is not zero")
     ds = tuple(rng.randrange(1, p) for _ in range(3))
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = qap.witness_map_device(model, ca, cb, cc)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if bool(H[:, n].any()):
+        raise AssertionError(f"{model.name}: witness_map's top coefficient is not zero")
     t0 = time.perf_counter()
     H_zk = qap.witness_map_device(model, ca, cb, cc, *ds)
     torch.cuda.synchronize()
@@ -1092,7 +1088,7 @@ def check_witness_map(model, cs, ex, n: int, keys: dict, at_t: dict, rng):
         if acc * z % p != ((A + d1 * z) * (B + d2 * z) - (C + d3 * z)) % p:
             raise AssertionError(f"{model.name}: witness map with d = {(d1, d2, d3) != (0, 0, 0)}"
                                  ": H(t) Z(t) != A'(t) B'(t) - C'(t)")
-    return {"witness_map": t_map, "patched_device": t_patched,
+    return {"plain_device": t_plain, "patched_device": t_patched,
             "identity_check": time.perf_counter() - t0}
 
 
@@ -1141,8 +1137,7 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     rejecting a wrong input, a tampered A and a truncated input; the
     witness map (``check_witness_map``); ``bg.prover`` with a random d != 1
     against the host and ``bg.verifier_strong_IC``; ``kc_multi_exp_fused``
-    and ``kc_multi_exp`` over (B_query_g2, B_query_g1) against the prover's
-    B MSMs; the keys through ``io.keys``.  Returns the prover's launch and
+    over (B_query_g2, B_query_g1) against the prover's B MSMs; the keys through ``io.keys``.  Returns the prover's launch and
     lane counts."""
     rr, ex, pk = model.Fr.p, gen.example, gen.pk
     primary, aux = ex.primary_input, ex.auxiliary_input
@@ -1212,36 +1207,33 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
         raise AssertionError(f"{hc.name}: bg.verifier_strong_IC rejects the card's BG proof")
     t_bg_verify = time.perf_counter() - t0
 
-    # the knowledge commitment over (B_query_g2, B_query_g1), fused and not
+    # the knowledge commitment over (B_query_g2, B_query_g1)
     Fr, G1, G2 = model.Fr, model.G1, model.G2
     kc = KCVector(g=G2.from_affine(*pk.B_query_g2), h=G1.from_affine(*pk.B_query_g1))
     w_can = canonical_words(Fr, keys["w"])
-    kc_secs, kc_out = {}, {}
-    for name, fn in (("fused", kc_multi_exp_fused), ("separate", kc_multi_exp)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        g, h = fn(G2, G1, kc, w_can)
-        torch.cuda.synchronize()
-        kc_secs[name] = time.perf_counter() - t0
-        kc_out[name] = (_g2_proj_to_host(model, g), _g1_proj_to_host(model, h))
-    del kc, w_can
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g, h = kc_multi_exp_fused(G2, G1, kc, w_can)
+    torch.cuda.synchronize()
+    t_kc = time.perf_counter() - t0
+    kc_out = (_g2_proj_to_host(model, g), _g1_proj_to_host(model, h))
+    del kc, w_can, g, h
     # the prover's own B MSMs, B - beta - s delta in G2 and in G1
     _, r0, s0, _, g1_B, _ = proof.extras
     from_proof = (hc.g2.add(proof.g_B, hc.g2.neg(hc.g2.add(pk.beta_g2, hc.g2.mul(s0, pk.delta_g2)))),
                   hc.g1.add(g1_B, hc.g1.neg(hc.g1.add(pk.beta_g1, hc.g1.mul(s0, pk.delta_g1)))))
     Bt = at_t["B"]
-    if not kc_out["fused"] == kc_out["separate"] == from_proof == (hc.g2.mul(Bt, hc.g2_gen),
-                                                                     g1b(Bt)):
+    if not kc_out == from_proof == (hc.g2.mul(Bt, hc.g2_gen), g1b(Bt)):
         raise AssertionError(f"{hc.name}: kc_multi_exp_fused differs from the prover's B MSMs")
 
     key_seconds, key_bytes = check_key_io(model, pk, vk, proof, workdir)
     emit("groth16", curve=hc.name, d=n - 1, m=n, proof_sha256=got_sha, proof_equal=True,
          verifier={"accepts": True, "rejects": ["input + 1", "tampered A", "truncated input"]},
-         witness_map={"equal_to_compute_h": True, "identity_at_random_tau": ["plain", "patched"]},
+         witness_map={"top_zero": True, "identity_at_random_tau": ["plain", "patched"]},
          bg={"equal": True, "verified": True}, kc_fused_equal=True,
          seconds={"prove": t_prove, **dict(prof.cumulative), "verification_key": t_vk,
                   "verify": t_verify, "bg_prove": t_bg, "bg_verify": t_bg_verify,
-                  "bg_phases": dict(bg_prof.cumulative), "kc_multi_exp": kc_secs,
+                  "bg_phases": dict(bg_prof.cumulative), "kc_multi_exp_fused": t_kc,
                   "keys": key_seconds, "witness_map_checks": wm_seconds},
          host_seconds={"expected_proof": t_expected}, key_bytes=key_bytes,
          peak_device_bytes=peak, launches=launches,

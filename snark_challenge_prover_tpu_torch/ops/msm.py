@@ -127,21 +127,17 @@ def _ec_scan(curve: Curve, elems, reverse: bool = False):
     return out
 
 
-def _sort_digits(digits: torch.Tensor):
-    """digits (Gr, M, N) -> (keys, order): each row's digits in ascending
-    order as (Gr * M, N), and the stable order that sorts them, (Gr, M, N).
-    Every curve whose MSMs share the scalars shares these."""
-    keys, order = torch.sort(digits, dim=-1, stable=True)
-    return keys.reshape(-1, digits.shape[-1]), order
-
-
-def _bucket_totals(curve: Curve, pts, keys: torch.Tensor, order: torch.Tensor, B: int):
+def _bucket_totals(curve: Curve, pts, digits: torch.Tensor, B: int):
     """pts: coordinates with batch (Gr, M, N) (the Gr axis may be a
-    broadcast view); keys, order: ``_sort_digits`` of their digits in
-    [0, B) -> totals of buckets 1..B-1, batch (Gr * M, B - 1)."""
+    broadcast view); digits (Gr, M, N) in [0, B) -> totals of buckets
+    1..B-1, batch (Gr * M, B - 1)."""
     k = curve.F.elem_ndim
-    R, N = keys.shape
+    N = digits.shape[-1]
+    R = digits.numel() // N
+    keys, order = torch.sort(digits, dim=-1, stable=True)
     sorted_pts = tuple(t.reshape(t.shape[:k] + (R, N)) for t in _take(curve, pts, order))
+    del order
+    keys = keys.reshape(R, N)
     pref = _ec_scan(curve, sorted_pts)
     del sorted_pts
     # bucket b occupies sorted positions [end[b-1], end[b]) of its row
@@ -181,47 +177,28 @@ def msm_multi_staged(curve: Curve, points, scalars_canonical: torch.Tensor,
     scalars_canonical: (24, M, N) canonical (non-Montgomery) words
     Returns a projective point batch of shape (M,).
     """
-    (out,) = msm_multi_staged_shared([(curve, points)], scalars_canonical, c, window_group,
-                                     scalar_bits)
-    return out
-
-
-def msm_multi_staged_shared(jobs, scalars_canonical: torch.Tensor, c: int | None = None,
-                            window_group: int | None = None, scalar_bits: int = SCALAR_BITS):
-    """``msm_multi_staged`` for several curves over the same scalars: jobs
-    is a list of (curve, points), each points' trailing batch (M, N).  A
-    window group's digits are cut and sorted once and drive the bucket
-    passes of every curve (the simultaneous walk of libsnark's
-    kc_multi_exp_with_mixed_addition).  Returns one (M,) batch a job."""
-    M, N = scalars_canonical.shape[-2:]
+    k = curve.F.elem_ndim
+    M, N = points[0].shape[-2:]
     if c is None:
         c = default_window_bits(N)
     B = 1 << c
     W = (scalar_bits + c - 1) // c
-    if window_group is not None:
-        Gr = window_group
-    else:
-        Gr = min(_default_window_group(curve, W, M, N, B) for curve, _ in jobs)
+    Gr = window_group if window_group is not None else _default_window_group(curve, W, M, N, B)
     n_groups = (W + Gr - 1) // Gr
 
-    carries = [curve.zero((M,)) for curve, _ in jobs]
+    carry = curve.zero((M,))
     for g in range(n_groups):
         # most significant windows first; window indices >= W carry zero digits
         wins = [n_groups * Gr - 1 - (g * Gr + j) for j in range(Gr)]
         digits = window_digits(scalars_canonical, c, scalar_bits, wins)  # (Gr, M, N)
-        keys, order = _sort_digits(digits)
-        del digits
-        for i, (curve, points) in enumerate(jobs):
-            k = curve.F.elem_ndim
-            rows = tuple(t.unsqueeze(-3).expand(t.shape[:k] + (Gr, M, N)) for t in points)
-            S = _window_sums(curve, _bucket_totals(curve, rows, keys, order, B))
-            del rows
-            S = tuple(t.reshape(t.shape[:k] + (Gr, M)) for t in S)
-            for j in range(Gr):
-                carries[i] = curve.double(carries[i], times=c)
-                carries[i] = curve.add(carries[i], tuple(t[..., j, :] for t in S))
-        del keys, order
-    return carries
+        rows = tuple(t.unsqueeze(-3).expand(t.shape[:k] + (Gr, M, N)) for t in points)
+        S = _window_sums(curve, _bucket_totals(curve, rows, digits, B))
+        del rows, digits
+        S = tuple(t.reshape(t.shape[:k] + (Gr, M)) for t in S)
+        for j in range(Gr):
+            carry = curve.double(carry, times=c)
+            carry = curve.add(carry, tuple(t[..., j, :] for t in S))
+    return carry
 
 
 def msm_staged(curve: Curve, points, scalars_canonical, c: int | None = None,

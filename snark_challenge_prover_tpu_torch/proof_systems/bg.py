@@ -56,7 +56,7 @@ class BGProof:
 
 
 def prover(model, pk: ProvingKey, d: int, primary, auxiliary, rng,
-           msm_window: int | None = None, profiler=None) -> BGProof:
+           profiler=None) -> BGProof:
     """r1cs_bg_ppzksnark_prover (tcc:394-514); d = 0 mod r raises."""
     hc = host_curve(model.name)
     r_p = model.Fr.p
@@ -64,7 +64,7 @@ def prover(model, pk: ProvingKey, d: int, primary, auxiliary, rng,
     if d == 0:
         raise ValueError("the BG randomiser d must be nonzero")
     shifted = replace(pk, delta_g1=hc.g1.mul(d, pk.delta_g1), delta_g2=hc.g2.mul(d, pk.delta_g2))
-    gg = gg_prover(model, shifted, primary, auxiliary, rng, msm_window, profiler)
+    gg = gg_prover(model, shifted, primary, auxiliary, rng, profiler)
     # gg's C is (Ht + Lt) + s A + r B - r s delta'; BG's takes d^-1 (Ht + Lt)
     HtLt, r, s, g1_A, g1_B, delta_prime_g1 = gg.extras
     g1 = hc.g1

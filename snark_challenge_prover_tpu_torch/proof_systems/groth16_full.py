@@ -220,7 +220,7 @@ def generator(model, cs: R1CSConstraintSystem, rng) -> Keypair:
 # prover
 # ---------------------------------------------------------------------------
 
-def prover(model, pk: ProvingKey, primary, auxiliary, rng, msm_window: int | None = None,
+def prover(model, pk: ProvingKey, primary, auxiliary, rng,
            profiler: Profiler | None = None) -> Proof:
     """r1cs_gg_ppzksnark_prover (tcc:382-497), blinding included: r, then
     s, each ``rng.randrange(r)`` (zero allowed), as the JAX package draws
@@ -245,8 +245,7 @@ def prover(model, pk: ProvingKey, primary, auxiliary, rng, msm_window: int | Non
     prof.leave_block("witness map")
 
     g1_res, g2_res = groth16_msms(model, pk.A_query, pk.B_query_g1, pk.B_query_g2, pk.H_query,
-                                  pk.L_query, w_can, h_can, cs.primary_input_size, msm_window,
-                                  prof)
+                                  pk.L_query, w_can, h_can, cs.primary_input_size, None, prof)
 
     prof.enter_block("assemble proof (host)")
     hc = host_curve(model.name)

@@ -6,11 +6,11 @@ The reference stores the Groth16 B query as a sparse vector of (G2, G1)
 pairs and walks both components together, in ``kc_batch_exp`` (key
 generation) and ``kc_multi_exp_with_mixed_addition`` (proving,
 kc_multiexp.tcc).  Here a vector is dense (a zero scalar costs nothing in
-the bucket method), ``kc_batch_exp`` and ``kc_multi_exp`` run the two
-components one after the other, and ``kc_multi_exp_fused`` makes the
-simultaneous walk proper: a window group's digits are cut and sorted once
-and drive the bucket passes of both groups (``ops.msm``'s shared staged
-MSM).  Both components take the same window, the default for their length.
+the bucket method), and ``kc_batch_exp`` and ``kc_multi_exp`` run the two
+components one after the other.  ``kc_multi_exp_fused`` is the same call:
+sharing each window group's digit cut and sort between the two groups was
+measured slower than two MSMs on the H100 (PERF.md, Findings).  Both
+components take the same window, the default for their length.
 """
 
 from __future__ import annotations
@@ -54,12 +54,8 @@ def kc_multi_exp(curve_T1, curve_T2, kc: KCVector, scalars_canonical, c: int | N
 
 def kc_multi_exp_fused(curve_T1, curve_T2, kc: KCVector, scalars_canonical,
                        c: int | None = None, scalar_bits: int = msm_mod.SCALAR_BITS):
-    """``kc_multi_exp`` as one simultaneous walk (kc_multiexp.tcc:64-130):
-    per window group one digit decomposition and one stable sort of the
-    scalars, which both components' bucket passes reuse.  Returns two
-    projective points, batch ()."""
-    jobs = [(curve, tuple(t.unsqueeze(-2) for t in pts))
-            for curve, pts in ((curve_T1, kc.g), (curve_T2, kc.h))]
-    out = msm_mod.msm_multi_staged_shared(jobs, scalars_canonical.unsqueeze(1), c,
-                                          scalar_bits=scalar_bits)
-    return tuple(tuple(t[..., 0] for t in P) for P in out)
+    """The JAX package's name for the simultaneous walk (kc_multiexp.tcc:64-130).
+    It is ``kc_multi_exp``: one digit cut and sort a window group shared by
+    both components was 1.4-2.1 % slower than two ``msm_staged`` at MNT4753
+    2^20 on the H100 (PERF.md, Findings)."""
+    return kc_multi_exp(curve_T1, curve_T2, kc, scalars_canonical, c, scalar_bits)
