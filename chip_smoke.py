@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--sizes4 1000,1048576,1572864]
                           [--sizes6 24576,32768,819200]
-                          [--keygen4 1048576] [--keygen6 32768] [--seed 1]
+                          [--keygen4 1048576] [--keygen6 32768] [--bacs-gates 65536]
+                          [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
 MNT4753 and for MNT6753 in turn: holds every kernel against its plain
@@ -43,12 +44,28 @@ the ``groth16`` phase: the blinded prover (``groth16_full.prover``, r and s
 drawn from the seed) with its launch counts, phase times and peak memory,
 its bytes held to bytes the host computes without any MSM; the
 verification key and ``verifier_strong_IC`` accepting the proof and
-rejecting a wrong input, a tampered A and a truncated input; the witness
-map, plain and with a random zero-knowledge patch, by the identity (A + d1 Z)(B + d2 Z) - (C + d3 Z) = H Z at a random point;
-``bg.prover`` with a random d against the host's scalars and its verifier;
+rejecting a wrong input, a tampered A and a truncated input;
 ``kc_multi_exp_fused`` (which is ``kc_multi_exp``) against the prover's B
-MSMs, timed; the full-size keys and the proof through ``io.keys``, timed; and
-every kernel compared and timed at the blinded prove's lane counts.
+MSMs, timed; then, on a key of at most d + 1 = 2^16 (``GROTH16_EXTRAS_MAX``;
+MNT4753 generates one at that size), the witness map, plain and with a
+random zero-knowledge patch, by the identity (A + d1 Z)(B + d2 Z) - (C + d3
+Z) = H Z at a random point, ``bg.prover`` with a random d against the
+host's scalars and its verifier, and the keys and the proof through
+``io.keys``, timed; and every kernel compared and timed at the blinded
+prove's lane counts.
+
+Then, on the key generation's example, the ``gm17`` phase (GM17 on the
+R1CS -> SAP reduction: MNT4753 on a SAP domain of 2^21, MNT6753 of 2^16)
+and the ``pghr13`` phase: the generator and the prover with their launch
+counts, phase times and peak memory; every query family, the single
+points and the verification key against exact host multiplication of the
+scalars replayed from the seed (the SAP or QAP at t by this script's own
+Lagrange basis); the proof against the host's scalars with no MSM; the
+witness map with the prover's zero-knowledge draws by its identity at t;
+the verdicts; and every kernel compared and timed at the prove's lane
+counts.  On MNT4753 the ``bacs`` phase proves a circuit of ``--bacs-gates``
+gates drawn from the seed and holds its keys and proof to PGHR13's on the
+circuit's R1CS.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -62,6 +79,8 @@ import argparse
 import hashlib
 import json
 import math
+import multiprocessing
+import os
 import random
 import shutil
 import struct
@@ -69,13 +88,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
+from itertools import chain
 from pathlib import Path
 
 import numpy as np
 import torch
-
-if not torch.cuda.is_available():
-    raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -88,16 +106,19 @@ from snark_challenge_prover_tpu_torch.io import serialization as ser  # noqa: E4
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops import _build, cuda_field, cuda_group  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa: E402
-from snark_challenge_prover_tpu_torch.ops.fft import get_evaluation_domain  # noqa: E402
+from snark_challenge_prover_tpu_torch.ops.fft import (  # noqa: E402
+    get_domain_of_min_size, get_evaluation_domain)
 from snark_challenge_prover_tpu_torch.ops.field import canonical_words  # noqa: E402
-from snark_challenge_prover_tpu_torch.proof_systems import bg, groth16_full  # noqa: E402
+from snark_challenge_prover_tpu_torch.proof_systems import (  # noqa: E402
+    bacs_ppzksnark, bg, gm17, groth16_full, pghr13)
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
 from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import (  # noqa: E402
     KCVector, kc_multi_exp_fused)
+from snark_challenge_prover_tpu_torch.reductions import bacs_to_r1cs, r1cs_to_sap  # noqa: E402
 from snark_challenge_prover_tpu_torch.reductions import r1cs_to_qap as qap  # noqa: E402
-from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
-    generate_r1cs_example_with_field_input)
+from snark_challenge_prover_tpu_torch.relations.bacs import BACSCircuit, BACSGate  # noqa: E402
+from snark_challenge_prover_tpu_torch.relations.r1cs import LinearCombination  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.bigint import ints_to_words, words_to_ints  # noqa: E402
 
@@ -166,13 +187,43 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def path_run(model, hc, what: str, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, and the peak memory reset: (its result, seconds, launches, lanes,
+    peak bytes).  Raises if a kernel of the curve's path was never launched."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_field.launches.clear()
+    cuda_field.launch_lanes.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_field.launches)
+    lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
+    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {hc.name} {what} path: {missing}")
+    return out, secs, launches, lanes, torch.cuda.max_memory_allocated()
+
+
+def top_lanes(lanes: dict) -> dict:
+    """Per kernel, the four lane counts that carried most of its work:
+    [lanes, launches], for the doublings [[lanes, doublings], launches]."""
+    return {k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
+            for k, v in lanes.items()}
+
+
 # --------------------------------------------------------------------------
 # data made from the seed
 # --------------------------------------------------------------------------
+STRIP_BASE, STRIP_STEP = 7, 11  # strip point j is (7 + 11 j) times the generator
+
+
 def strips(hc):
     """256 distinct G1 points 7G + 11iG and 128 G2 points, on the host."""
     def strip(group, gen, count):
-        P, step, out = group.mul(7, gen), group.mul(11, gen), []
+        P, step, out = group.mul(STRIP_BASE, gen), group.mul(STRIP_STEP, gen), []
         for _ in range(count):
             out.append(P)
             P = group.add(P, step)
@@ -578,11 +629,60 @@ def domain_runs(fr, kind: str, n: int):
     return None
 
 
+def vanishing_at(fr, kind: str, n: int, tau: int) -> int:
+    """Z(tau) = prod over the domain's runs of (tau^count - base^count)."""
+    p, z = fr.p, 1
+    for b, _, k in domain_runs(fr, kind, n):
+        z = z * (pow(tau, k, p) - pow(b, k, p)) % p
+    return z
+
+
+# worker processes (spawned by ``main``) for the Lagrange basis of large
+# domains, the longest host work of the checks; None: all in this process
+HOST_POOL = None
+BASIS_CHUNK = 1 << 16  # points of a run a worker takes at a time
+
+
+def host_map(fn, args: list) -> list:
+    """[fn(a) for a in args], on HOST_POOL's processes when there is one."""
+    if HOST_POOL is None or len(args) < 2:
+        return [fn(a) for a in args]
+    return list(HOST_POOL.map(fn, args))
+
+
+def run_basis(args) -> list:
+    """Points start .. start + count - 1 of a geometric run (base, ratio):
+    [x_i scale[i % period] / (tau - x_i)], one batch inversion."""
+    p, base, ratio, tau, scale, start, count = args
+    xs, diffs, x = [], [], base * pow(ratio, start, p) % p
+    for _ in range(count):
+        xs.append(x)
+        diffs.append(tau - x)
+        x = x * ratio % p
+    period = len(scale)
+    return [x * v % p * scale[(start + i) % period] % p
+            for i, (x, v) in enumerate(zip(xs, batch_inverse(diffs, p)))]
+
+
+def sequence_denominators(args) -> list:
+    """(tau - x_i) prod_{j != i} (x_i - x_j) for i in start .. start + count - 1."""
+    p, tau, xs, start, count = args
+    out = []
+    for i in range(start, start + count):
+        x, d = xs[i], tau - xs[i]
+        for j, y in enumerate(xs):
+            if j != i:
+                d = d * (x - y) % p
+        out.append(d)
+    return out
+
+
 def lagrange_at(fr, kind: str, n: int, tau: int):
     """(Z(tau), [L_i(tau)]) for the domain's points x_i: L_i(tau) =
     Z(tau) / (Z'(x_i) (tau - x_i)).  On a run, Z'(x) = (count base^count / x)
     prod over the other runs (x^count' - base'^count'), and that product is
-    periodic in i; the geometric sequence domain (x_i = 2^i) takes O(n^2)."""
+    periodic in i; the geometric sequence domain (x_i = 2^i) takes O(n^2).
+    The points go out to ``host_map`` in chunks."""
     p = fr.p
     runs = domain_runs(fr, kind, n)
     if runs is None:
@@ -592,17 +692,11 @@ def lagrange_at(fr, kind: str, n: int, tau: int):
         z = 1
         for x in xs:
             z = z * (tau - x) % p
-        dens = []
-        for i, x in enumerate(xs):
-            d = tau - x
-            for j, y in enumerate(xs):
-                if j != i:
-                    d = d * (x - y) % p
-            dens.append(d)
-        return z, [z * v % p for v in batch_inverse(dens, p)]
-    z = 1
-    for b, _, k in runs:
-        z = z * (pow(tau, k, p) - pow(b, k, p)) % p
+        step = -(-n // 64)
+        dens = chain.from_iterable(host_map(sequence_denominators, [
+            (p, tau, xs, s, min(step, n - s)) for s in range(0, n, step)]))
+        return z, [z * v % p for v in batch_inverse(list(dens), p)]
+    z = vanishing_at(fr, kind, n, tau)
     out = []
     for r, (b, ratio, k) in enumerate(runs):
         others = [(k2, pow(b2, k2, p)) for j, (b2, _, k2) in enumerate(runs) if j != r]
@@ -619,13 +713,9 @@ def lagrange_at(fr, kind: str, n: int, tau: int):
                 v = v * (pow(x, k2, p) - c2) % p
             K.append(v)
         scale = [z * v % p for v in batch_inverse(K, p)]
-        xs, diffs, x = [], [], b
-        for _ in range(k):
-            xs.append(x)
-            diffs.append(tau - x)
-            x = x * ratio % p
-        for i, v in enumerate(batch_inverse(diffs, p)):
-            out.append(xs[i] * v % p * scale[i % period] % p)
+        out.extend(chain.from_iterable(host_map(run_basis, [
+            (p, b, ratio, tau, scale, s, min(BASIS_CHUNK, k - s))
+            for s in range(0, k, BASIS_CHUNK)])))
     return z, out
 
 
@@ -643,10 +733,7 @@ def check_h(fr, kind: str, n: int, mont, h, rng):
         return sum(v * wt for v, wt in zip(vals, L)) % p * rinv % p
 
     a, b, c = evaluate(mont["ca"]), evaluate(mont["cb"]), evaluate(mont["cc"])
-    acc = 0
-    for coeff in reversed(h):
-        acc = (acc * tau + coeff) % p
-    if acc * z % p != (a * b - c) % p:
+    if horner(h, tau, p) * z % p != (a * b - c) % p:
         raise AssertionError(f"compute_h ({kind}): H(tau) Z(tau) != A(tau) B(tau) - C(tau)")
 
 
@@ -658,17 +745,19 @@ def expected_proof(hc, g1_strip, g2_strip, mont, h, n: int) -> bytes:
     d, m = n - 1, n
     w = mont["w"]
 
-    def collapse(group, strip, scalars, shift, scale):
+    def collapse(group, strip, gen, scalars, shift, scale):
         period = len(strip)
-        # strip point j collects the indices i with (i + shift) % period == j
-        sums = [sum(scalars[(j - shift) % period :: period]) * scale % p for j in range(period)]
-        return group.msm(sums, strip)
+        # strip point j, (7 + 11 j) times the generator, collects the indices
+        # i with (i + shift) % period == j: the MSM is one multiple of the generator
+        k = sum(sum(scalars[(j - shift) % period :: period]) * (STRIP_BASE + STRIP_STEP * j)
+                for j in range(period))
+        return group.mul(k * scale % p, gen)
 
-    At = collapse(hc.g1, g1_strip, w[: m + 1], SHIFTS["A"], rinv)
-    Bt1 = collapse(hc.g1, g1_strip, w[: m + 1], SHIFTS["B1"], rinv)
-    Bt2 = collapse(hc.g2, g2_strip, w[: m + 1], 0, rinv)
-    Lt = collapse(hc.g1, g1_strip, w[2 : m + 1], SHIFTS["L"], rinv)
-    Ht = collapse(hc.g1, g1_strip, h[:d], SHIFTS["H"], 1)
+    At = collapse(hc.g1, g1_strip, hc.g1_gen, w[: m + 1], SHIFTS["A"], rinv)
+    Bt1 = collapse(hc.g1, g1_strip, hc.g1_gen, w[: m + 1], SHIFTS["B1"], rinv)
+    Bt2 = collapse(hc.g2, g2_strip, hc.g2_gen, w[: m + 1], 0, rinv)
+    Lt = collapse(hc.g1, g1_strip, hc.g1_gen, w[2 : m + 1], SHIFTS["L"], rinv)
+    Ht = collapse(hc.g1, g1_strip, hc.g1_gen, h[:d], SHIFTS["H"], 1)
     C = hc.g1.add(hc.g1.add(Ht, Lt), hc.g1.mul(mont["r"] * rinv % p, Bt1))
 
     def g1(P):
@@ -757,16 +846,9 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     # the main path, with the launch counts set to 0 just before and read just after
     out_path = workdir / f"{hc.name}-{n}.output"
     prover = ChallengeProver(model, verbose=False)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_field.launches.clear()
-    cuda_field.launch_lanes.clear()
-    t0 = time.perf_counter()
-    got = prover.prove_files(str(params_path), str(input_path), str(out_path))
-    torch.cuda.synchronize()
-    t_prove = time.perf_counter() - t0
-    launches = dict(cuda_field.launches)
-    path_lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
+    got, t_prove, launches, path_lanes, peak = path_run(
+        model, hc, "challenge",
+        lambda: prover.prove_files(str(params_path), str(input_path), str(out_path)))
 
     got_sha = hashlib.sha256(out_path.read_bytes()).hexdigest()
     want_sha = hashlib.sha256(want).hexdigest()
@@ -774,9 +856,6 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     if got != out_path.read_bytes() or len(got) != proof_bytes or got_sha != want_sha:
         raise AssertionError(
             f"{hc.name} proof at d + 1 = {n} differs from the host's: {got_sha} != {want_sha}")
-    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the {hc.name} path: {missing}")
     for p in (params_path, input_path, out_path):
         p.unlink()
     emit("prove_full", curve=hc.name, d=n - 1, m=n, domain=domain_name, bytes=len(got),
@@ -784,11 +863,7 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
          seconds={"total": t_prove, **{k: v for k, v in prover.profiler.cumulative.items()}},
          host_seconds={"write_files": t_files, "compute_h_and_check": t_hcheck,
                        "expected_proof": t_expected},
-         peak_device_bytes=torch.cuda.max_memory_allocated(), launches=launches,
-         # per kernel, the four lane counts that carried most of its work:
-         # [lanes, launches], for the doublings [[lanes, doublings], launches]
-         lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
-                for k, v in path_lanes.items()})
+         peak_device_bytes=peak, launches=launches, lanes=top_lanes(path_lanes))
     return launches, path_lanes
 
 
@@ -848,24 +923,38 @@ class HostComb:
         return self._affine(J)
 
 
-def host_keys(model, hc, n: int, seed: int):
-    """The generator's secrets and scalars for d + 1 = n, replayed from the
-    seed on the host: the example, the A/B swap, t, alpha, beta, delta and
-    g1_scalar, in the generator's order of draws.  The QAP at t is
+def host_keys(model, hc, ex, seed: int):
+    """The generator's secrets and scalars, replayed from the seed on the
+    host for its example ``ex`` (the keygen's own: the generator drew it
+    first, with two draws, and applied the A/B swap): t, alpha, beta, delta
+    and g1_scalar, in the generator's order of draws.  The QAP at t is
     evaluated here from the constraints and this script's own Lagrange
-    basis (``lagrange_at``, from the field's roots), not by the port's
-    instance map: X_i(t) = sum over the rows j where variable i appears of
-    L_j(t) X_{j,i}, and A_i(t) gains L_{n_c + i}(t) for i <= num_inputs
-    (libsnark r1cs_to_qap.tcc:105-177)."""
+    basis (``qap_at``), not by the port's instance map."""
     rng = random.Random(seed)
     r = model.Fr.p
-    ex = generate_r1cs_example_with_field_input(r, n - 2, 1, rng)
+    rng.randrange(r), rng.randrange(r)  # the example's two draws
     cs = ex.constraint_system
-    cs.swap_AB_if_beneficial()
     t, alpha, beta, delta = (rng.randrange(1, r) for _ in range(4))
+    zt, At, Bt, Ct = qap_at(model, hc, cs, t)
+    n = get_domain_of_min_size(model.Fr, cs.num_constraints + cs.primary_input_size + 1).n
+    powers = [1] * (n - 1)  # t^i for the H query, i < d
+    for i in range(1, n - 1):
+        powers[i] = powers[i - 1] * t % r
+    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "nin": cs.primary_input_size,
+            "t": t, "At": At, "Bt": Bt, "Ct": Ct, "Zt": zt, "Ht": powers,
+            "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
+
+
+def qap_at(model, hc, cs, t: int):
+    """(Z(t), [A_i(t)], [B_i(t)], [C_i(t)]) for i <= m, by exact integers
+    from this script's own Lagrange basis over the QAP domain's points:
+    X_i(t) = sum over the rows j where variable i appears of L_j(t) X_{j,i},
+    and A_i(t) gains L_{n_c + i}(t) for i <= num_inputs (libsnark
+    r1cs_to_qap.tcc:105-177)."""
+    r = model.Fr.p
     nc, nin, m = cs.num_constraints, cs.primary_input_size, cs.num_variables
-    kind = type(get_evaluation_domain(model.Fr, nc + nin + 1)).__name__
-    zt, L = lagrange_at(hc.fr_spec, kind, n, t)
+    domain = get_domain_of_min_size(model.Fr, nc + nin + 1)
+    zt, L = lagrange_at(hc.fr_spec, type(domain).__name__, domain.n, t)
     At, Bt, Ct = [0] * (m + 1), [0] * (m + 1), [0] * (m + 1)
     for i in range(nin + 1):
         At[i] = L[nc + i]
@@ -873,13 +962,7 @@ def host_keys(model, hc, n: int, seed: int):
         for X, lc in ((At, cons.a), (Bt, cons.b), (Ct, cons.c)):
             for idx, coeff in lc.terms:
                 X[idx] += u * coeff
-    powers = [1] * (n - 1)  # t^i for the H query, i < d
-    for i in range(1, n - 1):
-        powers[i] = powers[i - 1] * t % r
-    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "nin": nin, "t": t,
-            "At": [v % r for v in At],
-            "Bt": [v % r for v in Bt], "Ct": [v % r for v in Ct], "Zt": zt, "Ht": powers,
-            "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
+    return zt, [v % r for v in At], [v % r for v in Bt], [v % r for v in Ct]
 
 
 def read_point(raw: np.ndarray, off: int, deg: int, spec):
@@ -970,25 +1053,14 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
     and the host's replay of the secrets and the QAP at t, which the
     groth16 phase reuses."""
     prof = Profiler(model.device, verbose=False)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_field.launches.clear()
-    cuda_field.launch_lanes.clear()
-    t0 = time.perf_counter()
-    gen = generate_for_curve(model, n.bit_length() - 1, random.Random(seed), workdir, prof)
+    gen, t_gen, launches, path_lanes, peak = path_run(
+        model, hc, "keygen",
+        lambda: generate_for_curve(model, n.bit_length() - 1, random.Random(seed), workdir, prof))
     params_path, input_path = gen.params_path, gen.input_path
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    launches = dict(cuda_field.launches)
-    path_lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
-    peak = torch.cuda.max_memory_allocated()
-    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the {hc.name} keygen path: {missing}")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    keys = host_keys(model, hc, n, seed)
+    keys = host_keys(model, hc, gen.example, seed)
     t_replay = time.perf_counter() - t0
     t0 = time.perf_counter()
     checked = check_queries(model, hc, params_path, keys, n, seed)
@@ -1016,9 +1088,7 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
          seconds={"generate": t_gen, **dict(prof.cumulative)},
          host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
          prove_seconds=t_prove, peak_device_bytes=peak, launches=launches,
-         lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
-                for k, v in path_lanes.items()},
-         largest_doubling={k: max(v, key=lambda s: (s[0], s[1])) for k, v in dbl.items()})
+         lanes=top_lanes(path_lanes), largest_doubling={k: max(v, key=lambda s: (s[0], s[1])) for k, v in dbl.items()})
     return launches, path_lanes, gen, keys
 
 
@@ -1052,44 +1122,45 @@ def blinded_scalars(model, keys: dict, at_t: dict, r: int, s: int, d: int = 1):
     return a, b, (htlt * pow(d, -1, rr) + s * a + r * b - r * s * dl) % rr
 
 
-def check_witness_map(model, cs, ex, n: int, keys: dict, at_t: dict, rng):
-    """The witness map at full size, on one set of A, B and C words:
-    ``witness_map_device`` without the patch leaves H[n] zero; with it and
-    with random d1, d2, d3, (A(t) + d1 Z(t)) (B(t) + d2 Z(t)) - (C(t) +
-    d3 Z(t)) = H(t) Z(t) at the key's random t, where this script's own
-    Lagrange basis gave A(t), B(t), C(t) and Z(t) (``host_keys``,
-    ``qap_at_t``).  Returns seconds."""
+def check_witness_map(model, cs, ex, n: int, t: int, z: int, at_t: dict, patches):
+    """The QAP witness map at full size, on one set of A, B and C words:
+    for each (d1, d2, d3) of ``patches``, ``witness_map_device``'s top
+    coefficient is d1 d2 (Z's is 1) and (A(t) + d1 Z(t)) (B(t) + d2 Z(t)) -
+    (C(t) + d3 Z(t)) = H(t) Z(t) at the key's random t, where this script's
+    own Lagrange basis gave A(t), B(t), C(t) and Z(t) (``qap_at``).  Returns
+    seconds."""
     Fr, p = model.Fr, model.Fr.p
     aA, aB, aC = qap.assemble_abc_evaluations(cs, ex.primary_input, ex.auxiliary_input, Fr)
     words = Fr.from_canonical(canonical_words(Fr, aA + aB + aC))
     del aA, aB, aC
     ca, cb, cc = (words[:, k * n : (k + 1) * n].contiguous() for k in range(3))
     del words
-    ds = tuple(rng.randrange(1, p) for _ in range(3))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    H = qap.witness_map_device(model, ca, cb, cc)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter() - t0
-    if bool(H[:, n].any()):
-        raise AssertionError(f"{model.name}: witness_map's top coefficient is not zero")
-    t0 = time.perf_counter()
-    H_zk = qap.witness_map_device(model, ca, cb, cc, *ds)
-    torch.cuda.synchronize()
-    t_patched = time.perf_counter() - t0
-    del ca, cb, cc
-    t0 = time.perf_counter()
-    tau, z = keys["t"], keys["Zt"]
     A, B, C = at_t["A"], at_t["B"], at_t["C"]
-    for h, (d1, d2, d3) in ((H, (0, 0, 0)), (H_zk, ds)):
-        acc = 0
-        for coeff in reversed(words_to_ints(Fr.to_canonical(h).cpu().numpy())):
-            acc = (acc * tau + coeff) % p
-        if acc * z % p != ((A + d1 * z) * (B + d2 * z) - (C + d3 * z)) % p:
+    secs = {"device": [], "identity_check": 0.0}
+    for d1, d2, d3 in patches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H = qap.witness_map_device(model, ca, cb, cc, d1, d2, d3)
+        torch.cuda.synchronize()
+        secs["device"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        coeffs = words_to_ints(Fr.to_canonical(H).cpu().numpy())
+        if coeffs[n] != d1 * d2 % p:
+            raise AssertionError(f"{model.name}: witness map's top coefficient is not d1 d2")
+        if horner(coeffs, t, p) * z % p != ((A + d1 * z) * (B + d2 * z) - (C + d3 * z)) % p:
             raise AssertionError(f"{model.name}: witness map with d = {(d1, d2, d3) != (0, 0, 0)}"
                                  ": H(t) Z(t) != A'(t) B'(t) - C'(t)")
-    return {"plain_device": t_plain, "patched_device": t_patched,
-            "identity_check": time.perf_counter() - t0}
+        secs["identity_check"] += time.perf_counter() - t0
+        del H, coeffs
+    return secs
+
+
+def horner(coeffs, x: int, p: int) -> int:
+    """The polynomial of ``coeffs`` (lowest degree first) at x."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
 
 
 def check_key_io(model, pk, vk, proof, workdir: Path):
@@ -1128,36 +1199,30 @@ def check_key_io(model, pk, vk, proof, workdir: Path):
     return secs, sizes
 
 
+# BG, the witness-map checks and the key files run on a key of at most this
+# d + 1: the rest of the groth16 phase runs at the key generation's size
+GROTH16_EXTRAS_MAX = 1 << 16
+
+
 def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     """The blinded Groth16 prover at the key generation's size, on its
     in-process proving key (``gen``) and the host's replay of its secrets
     (``keys``): ``groth16_full.prover`` with the launch counts set to 0 just
     before and read just after, its bytes against the host's MSM-free
     bytes; ``verification_key`` + ``verifier_strong_IC`` accepting it and
-    rejecting a wrong input, a tampered A and a truncated input; the
-    witness map (``check_witness_map``); ``bg.prover`` with a random d != 1
-    against the host and ``bg.verifier_strong_IC``; ``kc_multi_exp_fused``
-    over (B_query_g2, B_query_g1) against the prover's B MSMs; the keys through ``io.keys``.  Returns the prover's launch and
-    lane counts."""
+    rejecting a wrong input, a tampered A and a truncated input;
+    ``kc_multi_exp_fused`` over (B_query_g2, B_query_g1) against the
+    prover's B MSMs; then ``groth16_extras`` on the same key, or above
+    GROTH16_EXTRAS_MAX on a key generated at that size.  Returns the
+    prover's launch and lane counts."""
     rr, ex, pk = model.Fr.p, gen.example, gen.pk
     primary, aux = ex.primary_input, ex.auxiliary_input
     g1s = keys["g1_scalar"]
     g1b = lambda k: hc.g1.mul(k * g1s % rr, hc.g1_gen)
     prof = Profiler(model.device, verbose=False)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_field.launches.clear()
-    cuda_field.launch_lanes.clear()
-    t0 = time.perf_counter()
-    proof = groth16_full.prover(model, pk, primary, aux, random.Random(seed), profiler=prof)
-    torch.cuda.synchronize()
-    t_prove = time.perf_counter() - t0
-    launches = dict(cuda_field.launches)
-    path_lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
-    peak = torch.cuda.max_memory_allocated()
-    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the {hc.name} groth16 path: {missing}")
+    proof, t_prove, launches, path_lanes, peak = path_run(
+        model, hc, "groth16",
+        lambda: groth16_full.prover(model, pk, primary, aux, random.Random(seed), profiler=prof))
 
     t0 = time.perf_counter()
     at_t = qap_at_t(model, keys)
@@ -1175,37 +1240,8 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     t0 = time.perf_counter()
     vk = groth16_full.verification_key(pk, gen.secrets)
     t_vk = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if not groth16_full.verifier_strong_IC(vk, primary, proof):
-        raise AssertionError(f"{hc.name}: verifier_strong_IC rejects the card's proof")
-    t_verify = time.perf_counter() - t0
-    tampered = groth16_full.Proof(hc.g1.add(proof.g_A, hc.g1_gen), proof.g_B, proof.g_C)
-    for what, inputs, pf in (("input + 1", [(primary[0] + 1) % rr] + primary[1:], proof),
-                             ("tampered A", primary, tampered),
-                             ("truncated input", primary[:-1], proof)):
-        if groth16_full.verifier_strong_IC(vk, inputs, pf):
-            raise AssertionError(f"{hc.name}: verifier_strong_IC accepts a proof with {what}")
-
-    wm_seconds = check_witness_map(model, pk.constraint_system, ex, n, keys, at_t,
-                                   random.Random(seed))
-
-    d = random.Random(seed).randrange(2, rr)
-    bg_prof = Profiler(model.device, verbose=False)
-    t0 = time.perf_counter()
-    bg_proof = bg.prover(model, pk, d, primary, aux, random.Random(seed + 1), profiler=bg_prof)
-    torch.cuda.synchronize()
-    t_bg = time.perf_counter() - t0
-    blind = random.Random(seed + 1)
-    r, s = blind.randrange(rr), blind.randrange(rr)
-    ba, bb, bc = blinded_scalars(model, keys, at_t, r, s, d)
-    want_bg = (g1b(ba), hc.g2.mul(bb, hc.g2_gen), g1b(bc), hc.g2.mul(keys["delta"] * d % rr,
-                                                                     hc.g2_gen))
-    if (bg_proof.g_A, bg_proof.g_B, bg_proof.g_C, bg_proof.delta_prime) != want_bg:
-        raise AssertionError(f"{hc.name}: the BG proof differs from the host's scalars")
-    t0 = time.perf_counter()
-    if not bg.verifier_strong_IC(vk, primary, bg_proof):
-        raise AssertionError(f"{hc.name}: bg.verifier_strong_IC rejects the card's BG proof")
-    t_bg_verify = time.perf_counter() - t0
+    t_verify = check_verdicts(hc, groth16_full, vk, primary, proof, groth16_full.Proof(
+        hc.g1.add(proof.g_A, hc.g1_gen), proof.g_B, proof.g_C))["verify"]
 
     # the knowledge commitment over (B_query_g2, B_query_g1)
     Fr, G1, G2 = model.Fr, model.G1, model.G2
@@ -1226,20 +1262,478 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     if not kc_out == from_proof == (hc.g2.mul(Bt, hc.g2_gen), g1b(Bt)):
         raise AssertionError(f"{hc.name}: kc_multi_exp_fused differs from the prover's B MSMs")
 
-    key_seconds, key_bytes = check_key_io(model, pk, vk, proof, workdir)
+    extras_n, t0 = min(n, GROTH16_EXTRAS_MAX), time.perf_counter()
+    if extras_n < n:
+        del at_t
+        gen = generate_for_curve(model, extras_n.bit_length() - 1, random.Random(seed), workdir,
+                                 Profiler(model.device, verbose=False))
+        for path in (gen.params_path, gen.input_path):
+            path.unlink()
+        keys = host_keys(model, hc, gen.example, seed)
+        at_t, vk = qap_at_t(model, keys), groth16_full.verification_key(gen.pk, gen.secrets)
+    t_extras_key = time.perf_counter() - t0
+    extras = groth16_extras(model, hc, workdir, extras_n, seed, gen, keys, at_t, vk, proof)
     emit("groth16", curve=hc.name, d=n - 1, m=n, proof_sha256=got_sha, proof_equal=True,
          verifier={"accepts": True, "rejects": ["input + 1", "tampered A", "truncated input"]},
-         witness_map={"top_zero": True, "identity_at_random_tau": ["plain", "patched"]},
+         witness_map={"top": ["0", "d1 d2"], "identity_at_random_tau": ["plain", "patched"]},
          bg={"equal": True, "verified": True}, kc_fused_equal=True,
+         extras_d_plus_1=extras_n, key_bytes=extras.pop("key_bytes"),
          seconds={"prove": t_prove, **dict(prof.cumulative), "verification_key": t_vk,
-                  "verify": t_verify, "bg_prove": t_bg, "bg_verify": t_bg_verify,
-                  "bg_phases": dict(bg_prof.cumulative), "kc_multi_exp_fused": t_kc,
-                  "keys": key_seconds, "witness_map_checks": wm_seconds},
-         host_seconds={"expected_proof": t_expected}, key_bytes=key_bytes,
-         peak_device_bytes=peak, launches=launches,
-         lanes={k: sorted(v.items(), key=lambda kv: -math.prod(as_tuple(kv[0])) * kv[1])[:4]
-                for k, v in path_lanes.items()})
+                  "verify": t_verify, "kc_multi_exp_fused": t_kc,
+                  "extras_key": t_extras_key, **extras},
+         host_seconds={"expected_proof": t_expected},
+         peak_device_bytes=peak, launches=launches, lanes=top_lanes(path_lanes))
     return launches, path_lanes
+
+
+def groth16_extras(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict, at_t: dict, vk,
+                   proof) -> dict:
+    """On the key ``gen`` of d + 1 = n with its host replay ``keys`` and
+    verification key ``vk``: the witness map (``check_witness_map``, plain
+    and patched); ``bg.prover`` with a random d != 1 against the host's
+    scalars and ``bg.verifier_strong_IC``; the proving and verification keys
+    and ``proof`` through ``io.keys``.  Returns the seconds and the key files'
+    bytes."""
+    rr, ex, pk = model.Fr.p, gen.example, gen.pk
+    primary, aux = ex.primary_input, ex.auxiliary_input
+    g1b = lambda k: hc.g1.mul(k * keys["g1_scalar"] % rr, hc.g1_gen)
+    wm_rng = random.Random(seed)
+    wm_seconds = check_witness_map(model, pk.constraint_system, ex, n, keys["t"], keys["Zt"], at_t,
+                                   [(0, 0, 0), tuple(wm_rng.randrange(1, rr) for _ in range(3))])
+
+    d = random.Random(seed).randrange(2, rr)
+    bg_prof = Profiler(model.device, verbose=False)
+    t0 = time.perf_counter()
+    bg_proof = bg.prover(model, pk, d, primary, aux, random.Random(seed + 1), profiler=bg_prof)
+    torch.cuda.synchronize()
+    t_bg = time.perf_counter() - t0
+    blind = random.Random(seed + 1)
+    r, s = blind.randrange(rr), blind.randrange(rr)
+    ba, bb, bc = blinded_scalars(model, keys, at_t, r, s, d)
+    want_bg = (g1b(ba), hc.g2.mul(bb, hc.g2_gen), g1b(bc), hc.g2.mul(keys["delta"] * d % rr,
+                                                                     hc.g2_gen))
+    if (bg_proof.g_A, bg_proof.g_B, bg_proof.g_C, bg_proof.delta_prime) != want_bg:
+        raise AssertionError(f"{hc.name}: the BG proof differs from the host's scalars")
+    t0 = time.perf_counter()
+    if not bg.verifier_strong_IC(vk, primary, bg_proof):
+        raise AssertionError(f"{hc.name}: bg.verifier_strong_IC rejects the card's BG proof")
+    t_bg_verify = time.perf_counter() - t0
+
+    key_seconds, key_bytes = check_key_io(model, pk, vk, proof, workdir)
+    return {"bg_prove": t_bg, "bg_verify": t_bg_verify, "bg_phases": dict(bg_prof.cumulative),
+            "keys": key_seconds, "witness_map_checks": wm_seconds, "key_bytes": key_bytes}
+
+
+# --------------------------------------------------------------------------
+# phases: gm17, pghr13, bacs
+# --------------------------------------------------------------------------
+def zero_columns(pair) -> list:
+    """The entries of a stored affine query whose y is 0: the identities."""
+    y = pair[1]
+    return torch.nonzero(~y.reshape(-1, y.shape[-1]).any(dim=0)).flatten().tolist()
+
+
+def device_points(model, pair, idx) -> list:
+    """Entries ``idx`` of a stored affine query on the card -> host affine
+    points (None where y is 0)."""
+    spec = model.Fq.spec
+    sel = torch.tensor(idx, dtype=torch.long, device=pair[0].device)
+    comps = []
+    for t in pair:
+        t = t.index_select(-1, sel).cpu().numpy()
+        comps.append([[spec.from_mont(v) for v in words_to_ints(c)]
+                      for c in (t[None] if t.ndim == 2 else t)])
+    out = []
+    for j in range(len(idx)):
+        xs, ys = [c[j] for c in comps[0]], [c[j] for c in comps[1]]
+        out.append(None if not any(ys) else (xs[0], ys[0]) if len(xs) == 1
+                   else (tuple(xs), tuple(ys)))
+    return out
+
+
+class Powers:
+    """t^i for i < count, computed where read (none is zero)."""
+
+    def __init__(self, t: int, count: int, p: int):
+        self.t, self.count, self.p = t, count, p
+
+    def __len__(self):
+        return self.count
+
+    def __getitem__(self, i: int) -> int:
+        return pow(self.t, i, self.p)
+
+
+def check_family(model, hc, key: str, pair, values, coeff: int, comb, rng) -> dict:
+    """One query family on the card against exact multiplication (``comb``)
+    of its scalars coeff * values[i], coeff nonzero: every identity's
+    position against the zero values' (none for ``Powers``), then the first
+    and last entries, 256 random ones and a few identities."""
+    r = model.Fr.p
+    if coeff % r == 0 or pair[0].shape[-1] != len(values):
+        raise AssertionError(f"{hc.name} {key}: {pair[0].shape[-1]} entries, {len(values)} expected")
+    zero_rows = zero_columns(pair)
+    zero_values = [] if isinstance(values, Powers) else [i for i, v in enumerate(values) if v == 0]
+    if zero_rows != zero_values:
+        raise AssertionError(f"{hc.name} {key}: identities at {zero_rows[:8]}, zero scalars at "
+                             f"{zero_values[:8]}")
+    picks = sorted({0, len(values) - 1, *zero_values[:4], *zero_values[-4:],
+                    *rng.sample(range(len(values)), min(256, len(values)))})
+    for i, P in zip(picks, device_points(model, pair, picks)):
+        if P != comb.mul(coeff * values[i] % r):
+            raise AssertionError(f"{hc.name} {key}[{i}] differs from exact multiplication")
+    return {"entries": len(picks), "identities": len(zero_values)}
+
+
+def sap_domain(model, cs):
+    """(kind, size) of the SAP's domain: the smallest one of 2 n_c - n_sq +
+    2 num_inputs + 1 points (r1cs_to_sap.tcc:37-52)."""
+    nonsq = sum(not c.is_square for c in cs.constraints)
+    domain = get_domain_of_min_size(model.Fr, len(cs.constraints) + nonsq
+                                    + 2 * cs.primary_input_size + 1)
+    return type(domain).__name__, domain.n
+
+
+def sap_at_t(model, hc, cs, primary, auxiliary, t: int) -> dict:
+    """The R1CS -> SAP reduction of ``cs`` at t by exact integers, from the
+    SAP's rows and this script's own Lagrange basis over the SAP domain's
+    points (r1cs_to_sap.tcc:75-180): a non-square constraint a b = c gives
+    the rows (a + b)^2 = 4 c + x' and (a - b)^2 = x', x' a new variable;
+    a square one (a a = c) one row; then x_0^2 = x_0 and, for each input i
+    with a new x''_i, (x_i + x_0)^2 = 4 x_i + x''_i and (x_i - x_0)^2 =
+    x''_i.  Returns Z(t), A_i(t), C_i(t) for the SAP's variables, the rows'
+    A and C on the witness (the domain's values) and A(t), C(t)."""
+    r, fr = model.Fr.p, hc.fr_spec
+    nvar, nin = cs.num_variables, cs.primary_input_size
+    nonsq = sum(not c.is_square for c in cs.constraints)
+    kind, n = sap_domain(model, cs)
+    z, L = lagrange_at(fr, kind, n, t)
+    m = nvar + nonsq + nin
+    At, Ct, aA, aC = [0] * (m + 1), [0] * (m + 1), [0] * n, [0] * n
+    w = [v % r for v in list(primary) + list(auxiliary)]
+    k, extra = 0, []  # the next row; the x' values
+
+    def row(j, a_terms, c_terms, a_val, c_val):
+        for idx, coeff in a_terms:
+            At[idx] += L[j] * coeff
+        for idx, coeff in c_terms:
+            Ct[idx] += L[j] * coeff
+        aA[j], aC[j] = a_val % r, c_val % r
+
+    for cons in cs.constraints:
+        a, c = cons.a.evaluate(w, r), cons.c.evaluate(w, r)
+        if cons.is_square:
+            row(k, cons.a.terms, cons.c.terms, a, c)
+            k += 1
+            continue
+        b = cons.b.evaluate(w, r)
+        x = (a - b) ** 2 % r
+        xv = nvar + 1 + len(extra)
+        extra.append(x)
+        neg_b = [(idx, -coeff) for idx, coeff in cons.b.terms]
+        row(k, cons.a.terms + cons.b.terms, [(idx, 4 * co) for idx, co in cons.c.terms] + [(xv, 1)],
+            a + b, 4 * c + x)
+        row(k + 1, cons.a.terms + neg_b, [(xv, 1)], a - b, x)
+        k += 2
+    row(k, [(0, 1)], [(0, 1)], 1, 1)
+    for i in range(1, nin + 1):
+        xpp, xi = nvar + nonsq + i, w[i - 1]
+        row(k + 2 * i - 1, [(i, 1), (0, 1)], [(i, 4), (xpp, 1)], xi + 1, 4 * xi + (xi - 1) ** 2)
+        row(k + 2 * i, [(i, 1), (0, -1)], [(xpp, 1)], xi - 1, (xi - 1) ** 2)
+    return {"n": n, "kind": kind, "Zt": z, "At": [v % r for v in At],
+            "Ct": [v % r for v in Ct], "aA": aA, "aC": aC, "w": [1] + w,
+            "A": sum(u * v for u, v in zip(L, aA)) % r, "C": sum(u * v for u, v in zip(L, aC)) % r}
+
+
+def check_sap_witness_map(model, sap: dict, t: int, d1: int, d2: int) -> dict:
+    """The SAP witness map on the card for this script's own A and C on the
+    domain and the prover's d1, d2: H's top coefficient is d1^2 (Z's is 1)
+    and (A(t) + d1 Z(t))^2 - (C(t) + d2 Z(t)) = H(t) Z(t).  Returns seconds."""
+    Fr, p, n, z = model.Fr, model.Fr.p, sap["n"], sap["Zt"]
+    words = Fr.from_canonical(canonical_words(Fr, sap["aA"] + sap["aC"]))
+    ca, cc = words[:, :n].contiguous(), words[:, n:].contiguous()
+    del words
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = r1cs_to_sap.witness_map_device(model, ca, cc, d1, d2)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    del ca, cc
+    t0 = time.perf_counter()
+    coeffs = words_to_ints(Fr.to_canonical(H).cpu().numpy())
+    if len(coeffs) != n + 1 or coeffs[n] != d1 * d1 % p:
+        raise AssertionError(f"{model.name}: the SAP witness map's top coefficient is not d1^2")
+    if horner(coeffs, t, p) * z % p != ((sap["A"] + d1 * z) ** 2 - (sap["C"] + d2 * z)) % p:
+        raise AssertionError(f"{model.name}: SAP witness map: H(t) Z(t) != A'(t)^2 - C'(t)")
+    return {"device": t_dev, "identity_check": time.perf_counter() - t0}
+
+
+def check_verdicts(hc, system, vk, primary, proof, tampered) -> dict:
+    """``verifier_strong_IC`` accepts the proof and rejects a wrong input, a
+    tampered proof and a truncated input.  Returns the verification's seconds."""
+    rr = hc.fr_spec.p
+    t0 = time.perf_counter()
+    if not system.verifier_strong_IC(vk, primary, proof):
+        raise AssertionError(f"{hc.name}: {system.__name__} rejects the card's proof")
+    secs = time.perf_counter() - t0
+    for what, inputs, pf in (("input + 1", [(primary[0] + 1) % rr] + primary[1:], proof),
+                             ("tampered proof", primary, tampered),
+                             ("truncated input", primary[:-1], proof)):
+        if system.verifier_strong_IC(vk, inputs, pf):
+            raise AssertionError(f"{hc.name}: {system.__name__} accepts a proof with {what}")
+    return {"verify": secs, "verdicts": time.perf_counter() - t0}
+
+
+def proof_sha256(model, points) -> str:
+    """sha256 of a proof's host points in the wire format's encoding (96
+    Montgomery bytes a coordinate, the identity as zeros), in order."""
+    fq, h = model.Fq.spec, hashlib.sha256()
+    for P in points:
+        if P is None:
+            h.update(b"\x00")
+        else:
+            for c in P:
+                for v in (c if isinstance(c, tuple) else (c,)):
+                    h.update(mont_bytes(fq, v))
+    return h.hexdigest()
+
+
+def gm17_phase(model, hc, n: int, seed: int, ex):
+    """GM17 at the key generation's size, on its example: ``gm17.generator``
+    and ``gm17.prover`` (both drawing from ``--seed``), each with the launch
+    counts set to 0 just before and read just after; every query family, the
+    single points and the verification key against exact multiplication of
+    the scalars replayed on the host (the SAP at t by ``sap_at_t``); the
+    proof against the host's scalars, with no MSM (gm17.py's docstring); the
+    SAP witness map with the prover's d1, d2; the verdicts.  Returns the
+    prover's launch and lane counts."""
+    rr, cs = model.Fr.p, ex.constraint_system
+    primary, aux = ex.primary_input, ex.auxiliary_input
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_gen, kg_launches, _, kg_peak = path_run(
+        model, hc, "gm17 keygen", lambda: gm17.generator(model, cs, random.Random(seed), kg_prof))
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "gm17 prove",
+        lambda: gm17.prover(model, kp.pk, primary, aux, random.Random(seed), prof))
+
+    # the generator's draws (t until Z(t) != 0), the SAP at t, the prover's draws
+    t0 = time.perf_counter()
+    kind, sap_n = sap_domain(model, cs)
+    rng = random.Random(seed)
+    t = rng.randrange(1, rr)
+    while not vanishing_at(hc.fr_spec, kind, sap_n, t):
+        t = rng.randrange(1, rr)
+    alpha, beta, gamma, g_s, h_s = (rng.randrange(1, rr) for _ in range(5))
+    draws = random.Random(seed)
+    d1, d2, r = (draws.randrange(rr) for _ in range(3))
+    sap = sap_at_t(model, hc, cs, primary, aux, t)
+    At, Ct, Z, l = sap["At"], sap["Ct"], sap["Zt"], cs.primary_input_size
+    ab, g2z = (alpha + beta) % rr, gamma * gamma * Z % rr
+    vq = [(gamma * c + ab * a) % rr for a, c in zip(At, Ct)]
+    G, H = hc.g1.mul(g_s, hc.g1_gen), hc.g2.mul(h_s, hc.g2_gen)
+    combG, combH = HostComb(hc.g1, G), HostComb(hc.g2, hc.g2.mul(gamma, H))
+    t_replay = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pk, vk, chk = kp.pk, kp.vk, random.Random(seed)
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk)
+               for key, values, coeff, comb in (
+                   ("A_query", At, gamma, combG), ("B_query", At, 1, combH),
+                   ("C_query_1", vq[l + 1 :], gamma, combG), ("C_query_2", At, 2 * g2z, combG),
+                   ("G_gamma2_Z_t", Powers(t, sap_n + 1, rr), g2z, combG))}
+    gz = gamma * Z % rr
+    singles = ((pk.G_gamma_Z, combG.mul(gz)), (pk.H_gamma_Z, hc.g2.mul(gz, H)),
+               (pk.G_ab_gamma_Z, combG.mul(ab * gz % rr)), (pk.G_gamma2_Z2, combG.mul(g2z * Z % rr)),
+               (vk.H, H), (vk.G_alpha, combG.mul(alpha)), (vk.H_beta, hc.g2.mul(beta, H)),
+               (vk.G_gamma, combG.mul(gamma)), (vk.H_gamma, hc.g2.mul(gamma, H)),
+               (vk.query, [combG.mul(v) for v in vq[: l + 1]]))
+    if any(got != want for got, want in singles):
+        raise AssertionError(f"{hc.name} gm17: a single point or the verification key differs")
+    t_checks = time.perf_counter() - t0
+
+    # A = gamma (A(t) + (r + d1) Z) G, B likewise over H, C by gm17.py's docstring
+    t0 = time.perf_counter()
+    w = sap["w"]
+    A_t, C_t = sap["A"], sap["C"]
+    low_A, low_C = (sum(wi * v for wi, v in zip(w[: l + 1], X)) for X in (At, Ct))
+    h_t = ((A_t + d1 * Z) ** 2 - (C_t + d2 * Z)) * pow(Z, -1, rr)
+    rd1 = r + d1
+    a = gamma * (A_t + rd1 * Z) % rr
+    c = (gamma * (gamma * (C_t - low_C) + ab * (A_t - low_A)) + (r * r + 2 * r * d1) * g2z * Z
+         + rd1 * ab * gz + 2 * r * g2z * A_t + g2z * (h_t + d2)) % rr
+    if (proof.A, proof.B, proof.C) != (combG.mul(a), hc.g2.mul(a, H), combG.mul(c)):
+        raise AssertionError(f"{hc.name} gm17 proof at d + 1 = {n} differs from the host's scalars")
+    t_expected = time.perf_counter() - t0
+    wm = check_sap_witness_map(model, sap, t, d1, d2)
+    m_sap = len(At) - 1
+    del sap, At, Ct, vq
+    verdicts = check_verdicts(hc, gm17, vk, primary, proof,
+                              gm17.Proof(hc.g1.add(proof.A, hc.g1_gen), proof.B, proof.C))
+    emit("gm17", curve=hc.name, d=n - 1, sap_domain=[kind, sap_n], sap_variables=m_sap,
+         queries_checked=checked, proof_sha256=proof_sha256(model, (proof.A, proof.B, proof.C)),
+         proof_equal=True, verifier={"accepts": True, "rejects": ["input + 1", "tampered A",
+                                                                  "truncated input"]},
+         witness_map={"top": "d1^2", "identity_at_t": True},
+         seconds={"generate": t_gen, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                  "prove_phases": dict(prof.cumulative), **verdicts, "witness_map_check": wm},
+         host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes))
+    return launches, lanes
+
+
+def pghr13_phase(model, hc, n: int, seed: int, ex):
+    """PGHR13 at the key generation's size, on its example:
+    ``pghr13.generator`` and ``pghr13.prover`` (both drawing from
+    ``--seed``) with the launch counts set to 0 just before and read just
+    after; every query family (the K and IC quirks included) and the
+    verification key against exact multiplication of the scalars replayed
+    on the host (the QAP at t by ``qap_at``); the knowledge-commitment pairs,
+    H and K against the host's scalars, with no MSM; the QAP witness map
+    with the prover's d1, d2, d3; the verdicts.  Returns the prover's launch
+    and lane counts."""
+    rr, cs = model.Fr.p, ex.constraint_system
+    primary, aux = ex.primary_input, ex.auxiliary_input
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_gen, kg_launches, _, kg_peak = path_run(
+        model, hc, "pghr13 keygen",
+        lambda: pghr13.generator(model, cs, random.Random(seed), kg_prof))
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "pghr13 prove",
+        lambda: pghr13.prover(model, kp.pk, primary, aux, random.Random(seed), prof))
+
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    t = rng.randrange(1, rr)
+    alA, alB, alC, rA, rB, beta, gamma = (rng.randrange(1, rr) for _ in range(7))
+    rC = rA * rB % rr
+    draws = random.Random(seed)
+    d1, d2, d3 = (draws.randrange(rr) for _ in range(3))
+    Z, At, Bt, Ct = qap_at(model, hc, cs, t)
+    qap_n = get_domain_of_min_size(model.Fr, cs.num_constraints + len(primary) + 1).n
+    m, l = cs.num_variables, len(primary)
+    combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
+    t_replay = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pk, vk, chk = kp.pk, kp.vk, random.Random(seed)
+    A0, Bz, Cz = [0] * (l + 1) + At[l + 1 :] + [Z], Bt + [Z], Ct + [Z]
+    # K / beta: rows 0..m, row m + 1 skipped, then the three Z rows (pghr13.py:137-148)
+    K = [(rA * a + rB * b + rC * c) % rr for a, b, c in zip(At, Bt, Ct)]
+    K += [rX * Z % rr for rX in (rA, rB, rC)]
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk)
+               for key, values, coeff, comb in (
+                   ("A_query_g", A0, rA, combG), ("A_query_h", A0, rA * alA, combG),
+                   ("B_query_g", Bz, rB, combH), ("B_query_h", Bz, rB * alB, combG),
+                   ("C_query_g", Cz, rC, combG), ("C_query_h", Cz, rC * alC, combG),
+                   ("H_query", Powers(t, qap_n + 1, rr), 1, combG), ("K_query", K, beta, combG))}
+    del A0, Bz, Cz, K
+    G2 = hc.g2_gen
+    singles = ((vk.alphaA_g2, hc.g2.mul(alA, G2)), (vk.alphaB_g1, combG.mul(alB)),
+               (vk.alphaC_g2, hc.g2.mul(alC, G2)), (vk.gamma_g2, hc.g2.mul(gamma, G2)),
+               (vk.gamma_beta_g1, combG.mul(gamma * beta % rr)),
+               (vk.gamma_beta_g2, hc.g2.mul(gamma * beta % rr, G2)),
+               (vk.rC_Z_g2, hc.g2.mul(rC * Z % rr, G2)), (vk.encoded_IC_base, combG.mul(rA * At[0] % rr)),
+               (vk.encoded_IC_values, [combG.mul(rA * a % rr) for a in At[1 : l + 1]]))
+    if any(got != want for got, want in singles):
+        raise AssertionError(f"{hc.name} pghr13: the verification key differs")
+    t_checks = time.perf_counter() - t0
+
+    # the pairs rX (X(t) + d Z) (G or H, and alphaX times it in G1), A without
+    # its input rows; H(t) = (A' B' - C') / Z; K = beta (rA A' + rB B' + rC C')
+    t0 = time.perf_counter()
+    w = [1] + [v % rr for v in primary + aux]
+    A_t, B_t, C_t = (sum(wi * v for wi, v in zip(w, X)) % rr for X in (At, Bt, Ct))
+    Ap, Bp, Cp = A_t + d1 * Z, B_t + d2 * Z, C_t + d3 * Z
+    A0p = Ap - sum(wi * v for wi, v in zip(w[: l + 1], At))
+    g = lambda k: combG.mul(k % rr)
+    want = pghr13.Proof(
+        g_A=(g(rA * A0p), g(rA * alA * A0p)), g_B=(hc.g2.mul(rB * Bp % rr, G2), g(rB * alB * Bp)),
+        g_C=(g(rC * Cp), g(rC * alC * Cp)), g_H=g((Ap * Bp - Cp) * pow(Z, -1, rr)),
+        g_K=g(beta * (rA * Ap + rB * Bp + rC * Cp)))
+    if proof != want:
+        raise AssertionError(f"{hc.name} pghr13 proof at d + 1 = {n} differs from the host's scalars")
+    t_expected = time.perf_counter() - t0
+    wm = check_witness_map(model, cs, ex, qap_n, t, Z, {"A": A_t, "B": B_t, "C": C_t},
+                           [(d1, d2, d3)])
+    del At, Bt, Ct
+    tampered = pghr13.Proof(**{**vars(proof), "g_A": (hc.g1.add(proof.g_A[0], hc.g1_gen),
+                                                      proof.g_A[1])})
+    verdicts = check_verdicts(hc, pghr13, vk, primary, proof, tampered)
+    points = (*proof.g_A, *proof.g_B, *proof.g_C, proof.g_H, proof.g_K)
+    emit("pghr13", curve=hc.name, d=n - 1, qap_domain=qap_n, m=m, queries_checked=checked,
+         proof_sha256=proof_sha256(model, points), proof_equal=True,
+         verifier={"accepts": True, "rejects": ["input + 1", "tampered A", "truncated input"]},
+         witness_map={"top": "d1 d2", "identity_at_t": True},
+         seconds={"generate": t_gen, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                  "prove_phases": dict(prof.cumulative), **verdicts, "witness_map_check": wm},
+         host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes))
+    return launches, lanes
+
+
+def random_circuit(p: int, num_gates: int, seed: int):
+    """A satisfiable BACS circuit drawn from the seed: one primary and two
+    auxiliary inputs; each gate multiplies two combinations of one or two
+    earlier wires (the constant among them); the last gate, (w - v) * 1 for
+    the wire w before it and its value v, is the one circuit output."""
+    rng = random.Random(seed)
+    primary, aux = [rng.randrange(p)], [rng.randrange(p), rng.randrange(p)]
+    circuit = BACSCircuit(p, primary_input_size=1, auxiliary_input_size=2)
+    wires = primary + aux
+    for _ in range(num_gates - 1):
+        lcs = [[(rng.randrange(len(wires) + 1), rng.randrange(1, p)) for _ in range(rng.randrange(1, 3))]
+               for _ in range(2)]
+        gate = BACSGate(LinearCombination(lcs[0]), LinearCombination(lcs[1]), len(wires) + 1)
+        circuit.add_gate(gate)
+        wires.append(gate.evaluate(wires, p))
+    circuit.add_gate(BACSGate(LinearCombination([(len(wires), 1), (0, p - wires[-1])]),
+                              LinearCombination.constant(1), len(wires) + 1, True))
+    return circuit, primary, aux
+
+
+def bacs_phase(model, hc, num_gates: int, seed: int):
+    """The BACS ppzkSNARK on a circuit of ``num_gates`` gates drawn from the
+    seed: ``bacs_ppzksnark.generator`` and ``prover`` with the launch counts
+    set to 0 just before each and read just after; the key pair and the
+    proof equal to PGHR13's on ``bacs_to_r1cs.instance_map`` with the same
+    seeds; the verdicts."""
+    circuit, primary, aux = random_circuit(model.Fr.p, num_gates, seed)
+    if not circuit.is_satisfied(primary, aux):
+        raise AssertionError("the drawn circuit is not satisfied")
+    kp, t_gen, kg_launches, _, _ = path_run(
+        model, hc, "bacs keygen",
+        lambda: bacs_ppzksnark.generator(model, circuit, random.Random(seed)))
+    proof, t_prove, launches, _, peak = path_run(
+        model, hc, "bacs prove",
+        lambda: bacs_ppzksnark.prover(model, kp.pk, primary, aux, random.Random(seed + 1)))
+    cs = bacs_to_r1cs.instance_map(circuit)
+    t0 = time.perf_counter()
+    kp2 = pghr13.generator(model, cs, random.Random(seed))
+    wires = bacs_to_r1cs.witness_map(circuit, primary, aux)
+    proof2 = pghr13.prover(model, kp2.pk, primary, wires[1:], random.Random(seed + 1))
+    t_pghr13 = time.perf_counter() - t0
+    same_keys = kp.vk == kp2.vk and all(
+        torch.equal(a, b) for f in ("A_query_g", "A_query_h", "B_query_g", "B_query_h", "C_query_g",
+                                    "C_query_h", "H_query", "K_query")
+        for a, b in zip(getattr(kp.pk.r1cs_pk, f), getattr(kp2.pk, f)))
+    if not same_keys or proof != proof2:
+        raise AssertionError(f"{hc.name} bacs: keys or proof differ from PGHR13's on the same R1CS")
+    del kp2
+    t0 = time.perf_counter()
+    if not bacs_ppzksnark.verifier_strong_IC(kp.vk, primary, proof):
+        raise AssertionError(f"{hc.name}: bacs_ppzksnark rejects the card's proof")
+    t_verify = time.perf_counter() - t0
+    if bacs_ppzksnark.verifier_strong_IC(kp.vk, [(primary[0] + 1) % model.Fr.p], proof):
+        raise AssertionError(f"{hc.name}: bacs_ppzksnark accepts a wrong input")
+    points = (*proof.g_A, *proof.g_B, *proof.g_C, proof.g_H, proof.g_K)
+    emit("bacs", curve=hc.name, gates=num_gates, constraints=cs.num_constraints,
+         qap_domain=type(get_domain_of_min_size(model.Fr, cs.num_constraints + 2)).__name__,
+         proof_sha256=proof_sha256(model, points), equal_to_pghr13=True, verified=True,
+         rejects=["input + 1"], seconds={"generate": t_gen, "prove": t_prove,
+                                         "pghr13_generate_and_prove": t_pghr13, "verify": t_verify},
+         peak_device_bytes=peak, launches={"keygen": kg_launches, "prove": launches})
 
 
 def shape_picks(lanes: dict) -> dict:
@@ -1256,7 +1750,8 @@ def shape_picks(lanes: dict) -> dict:
 def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     """All phases of one curve.  Returns the launch counts of its largest
     prove and the kernels' numbers at that prove's lane counts, then the
-    same for its key generation and for its blinded Groth16 prove."""
+    same for its key generation and for its blinded Groth16, GM17 and PGHR13
+    proves."""
     model = MODELS[curve].get("cuda")
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
@@ -1283,15 +1778,32 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     torch.cuda.empty_cache()
 
     g16_launches, g16_lanes = groth16(model, hc, workdir, args.keygen[curve], args.seed, gen, keys)
+    ex = gen.example
     del gen, keys
     torch.cuda.empty_cache()
     g16_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng,
                                               shape_picks(g16_lanes), errs,
                                               phase="kernels_at_groth16_shapes")
-    return launches, report, (kg_launches, kg_report), (g16_launches, g16_report)
+    torch.cuda.empty_cache()
+
+    # GM17 and PGHR13 on the key generation's example, then BACS
+    more = []
+    for name, phase in (("gm17", gm17_phase), ("pghr13", pghr13_phase)):
+        path_launches, path_lanes = phase(model, hc, args.keygen[curve], args.seed, ex)
+        torch.cuda.empty_cache()
+        more.append((path_launches, check_kernels_at_path_shapes(
+            model, g1_strip, g2_strip, rng, shape_picks(path_lanes), errs,
+            phase=f"kernels_at_{name}_shapes")))
+        torch.cuda.empty_cache()
+    if curve == "MNT4753" and args.bacs_gates:
+        bacs_phase(model, hc, args.bacs_gates, args.seed)
+    return (launches, report, (kg_launches, kg_report), (g16_launches, g16_report), *more)
 
 
 def main(argv=None) -> int:
+    global HOST_POOL
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sizes4", default="1000,1048576,1572864",
                     help="d + 1 of the MNT4753 full-size proves (the challenge's size is "
@@ -1307,6 +1819,8 @@ def main(argv=None) -> int:
     ap.add_argument("--keygen6", type=int, default=1 << 15,
                     help="d + 1 of the MNT6753 key generation (a power of two; the "
                          "reference's default is 2^15)")
+    ap.add_argument("--bacs-gates", type=int, default=1 << 16,
+                    help="gates of the BACS circuit proved on MNT4753 (0: no bacs phase)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
@@ -1339,17 +1853,21 @@ def main(argv=None) -> int:
     errs, results = {}, {}
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        for curve in curves:
-            results[curve] = run_curve(curve, sizes[curve], args, workdir, errs)
+        with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            HOST_POOL = pool
+            for curve in curves:
+                results[curve] = run_curve(curve, sizes[curve], args, workdir, errs)
     finally:
+        HOST_POOL = None
         shutil.rmtree(workdir, ignore_errors=True)
 
     # one entry per kernel: its numbers from the first curve whose path runs it,
     # and under "also" those of a later curve that runs it with other moduli and lanes;
-    # under "keygen" and "groth16" its numbers on each curve's key generation and
-    # blinded prove
+    # under "keygen", "groth16", "gm17" and "pghr13" its numbers on each curve's key
+    # generation and on its blinded Groth16, GM17 and PGHR13 proves
     kernels = {}
-    for curve, (launches, report, kg, g16) in results.items():
+    for curve, (launches, report, kg, g16, gm, pg) in results.items():
         for name, r in report.items():
             entry = {"curve": curve, "launches": launches[name], **r}
             if name in kernels:
@@ -1359,7 +1877,8 @@ def main(argv=None) -> int:
                 kernels[name] = {"name": name, "route": "cuda", "source": source,
                                  "replaces": replaces, "max_abs_err": errs[name],
                                  "library_ms": None, **entry}
-            for key, (path_launches, path_report) in (("keygen", kg), ("groth16", g16)):
+            for key, (path_launches, path_report) in (("keygen", kg), ("groth16", g16),
+                                                      ("gm17", gm), ("pghr13", pg)):
                 kernels[name].setdefault(key, []).append(
                     {"curve": curve, "d_plus_1": args.keygen[curve],
                      "launches": path_launches[name], **path_report[name]})

@@ -14,7 +14,9 @@ import torch
 
 from .io.serialization import Groth16Input, Groth16Params
 from .ops.limbs import planes16_to_words, to_planes16
+from .proof_systems import bacs_ppzksnark, gm17, pghr13
 from .proof_systems.groth16_full import Proof, ProvingKey, VerificationKey
+from .relations.bacs import BACSCircuit, BACSGate
 from .relations.r1cs import LinearCombination, R1CSConstraint, R1CSConstraintSystem
 
 
@@ -60,11 +62,16 @@ def r1cs_from_reference(ref) -> R1CSConstraintSystem:
     return cs
 
 
+def _pair(xy, device):
+    """An affine (x, y) pair of limb planes -> the port's word tensors."""
+    return tensor_from_planes(xy[0], device), tensor_from_planes(xy[1], device)
+
+
 def proving_key_from_jax(ref, device) -> ProvingKey:
     """The JAX package's ``ProvingKey`` (queries as affine 16-bit limb
     planes, the identity stored as (0, 0)) -> the port's, its queries as
     word tensors on ``device``; the single points are host integers in both."""
-    pair = lambda xy: (tensor_from_planes(xy[0], device), tensor_from_planes(xy[1], device))
+    pair = lambda xy: _pair(xy, device)
     return ProvingKey(
         curve=ref.curve, alpha_g1=ref.alpha_g1, beta_g1=ref.beta_g1, beta_g2=ref.beta_g2,
         delta_g1=ref.delta_g1, delta_g2=ref.delta_g2, A_query=pair(ref.A_query),
@@ -83,3 +90,63 @@ def verification_key_from_jax(ref) -> VerificationKey:
 def proof_from_jax(ref) -> Proof:
     """The JAX package's ``Proof`` -> the port's (host affine integers in both)."""
     return Proof(g_A=ref.g_A, g_B=ref.g_B, g_C=ref.g_C)
+
+
+def gm17_proving_key_from_jax(ref, device) -> gm17.ProvingKey:
+    """The JAX package's GM17 ``ProvingKey`` -> the port's, its queries as
+    word tensors on ``device``; the single points are host integers in both."""
+    queries = {k: _pair(getattr(ref, k), device)
+               for k in ("A_query", "B_query", "C_query_1", "C_query_2", "G_gamma2_Z_t")}
+    singles = {k: getattr(ref, k) for k in ("G_gamma_Z", "H_gamma_Z", "G_ab_gamma_Z",
+                                             "G_gamma2_Z2")}
+    return gm17.ProvingKey(curve=ref.curve, **queries, **singles,
+                           constraint_system=r1cs_from_reference(ref.constraint_system))
+
+
+def gm17_verification_key_from_jax(ref) -> gm17.VerificationKey:
+    """Host integers in both packages: a copy."""
+    return gm17.VerificationKey(curve=ref.curve, H=ref.H, G_alpha=ref.G_alpha, H_beta=ref.H_beta,
+                                G_gamma=ref.G_gamma, H_gamma=ref.H_gamma, query=list(ref.query))
+
+
+def gm17_proof_from_jax(ref) -> gm17.Proof:
+    return gm17.Proof(A=ref.A, B=ref.B, C=ref.C)
+
+
+def pghr13_proving_key_from_jax(ref, device) -> pghr13.ProvingKey:
+    """The JAX package's PGHR13 ``ProvingKey`` -> the port's, its queries as
+    word tensors on ``device``."""
+    queries = {k: _pair(getattr(ref, k), device)
+               for k in ("A_query_g", "A_query_h", "B_query_g", "B_query_h", "C_query_g",
+                         "C_query_h", "H_query", "K_query")}
+    return pghr13.ProvingKey(curve=ref.curve, **queries,
+                             constraint_system=r1cs_from_reference(ref.constraint_system))
+
+
+def pghr13_verification_key_from_jax(ref) -> pghr13.VerificationKey:
+    """Host integers in both packages: a copy."""
+    return pghr13.VerificationKey(
+        curve=ref.curve, alphaA_g2=ref.alphaA_g2, alphaB_g1=ref.alphaB_g1,
+        alphaC_g2=ref.alphaC_g2, gamma_g2=ref.gamma_g2, gamma_beta_g1=ref.gamma_beta_g1,
+        gamma_beta_g2=ref.gamma_beta_g2, rC_Z_g2=ref.rC_Z_g2,
+        encoded_IC_base=ref.encoded_IC_base, encoded_IC_values=list(ref.encoded_IC_values))
+
+
+def pghr13_proof_from_jax(ref) -> pghr13.Proof:
+    return pghr13.Proof(g_A=ref.g_A, g_B=ref.g_B, g_C=ref.g_C, g_H=ref.g_H, g_K=ref.g_K)
+
+
+def bacs_circuit_from_reference(ref) -> BACSCircuit:
+    """The JAX package's BACS circuit -> the port's (the same gates and terms)."""
+    circuit = BACSCircuit(ref.p, ref.primary_input_size, ref.auxiliary_input_size)
+    for g in ref.gates:
+        circuit.add_gate(BACSGate(LinearCombination(g.lhs.terms), LinearCombination(g.rhs.terms),
+                                  g.output, g.is_circuit_output))
+    return circuit
+
+
+def bacs_proving_key_from_jax(ref, device) -> bacs_ppzksnark.ProvingKey:
+    """The JAX package's BACS ``ProvingKey`` (the circuit and a PGHR13 key)
+    -> the port's."""
+    return bacs_ppzksnark.ProvingKey(circuit=bacs_circuit_from_reference(ref.circuit),
+                                     r1cs_pk=pghr13_proving_key_from_jax(ref.r1cs_pk, device))

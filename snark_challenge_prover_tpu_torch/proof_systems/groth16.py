@@ -64,6 +64,18 @@ def _g2_proj_to_host(model, P):
     return (F.mul(X, zi), F.mul(Y, zi))
 
 
+def query_point(model, pair, i: int):
+    """Entry i of a stored affine query ((x, y) Montgomery words, each
+    (24, N) or (deg, 24, N)) -> host affine integers; y = 0 stores the
+    identity, which gives None."""
+    spec = model.Fq.spec
+    x, y = (t[..., i].reshape(-1, 24).T.cpu().numpy() for t in pair)
+    if not y.any():
+        return None
+    xs, ys = ([spec.from_mont(v) for v in words_to_ints(c)] for c in (x, y))
+    return (xs[0], ys[0]) if len(xs) == 1 else (tuple(xs), tuple(ys))
+
+
 def groth16_msms(model, A, B1, B2, H, L, w_can, h_can, num_inputs: int,
                  msm_window: int | None, prof: Profiler):
     """The five MSMs of a Groth16 prove on the model's device: the four G1

@@ -132,12 +132,18 @@ def witness_map_device(model, ca, cb, cc, d1: int = 0, d2: int = 0, d3: int = 0)
                       F.mul_const(domain.ifft(cb), F.const(d1)))
         domain.add_poly_Z(d1 * d2 % p, z)
         z[0] = (z[0] - d3) % p
-        cols = [k for k in range(n) if z[k]]
-        if cols:
-            idx = torch.tensor(cols, device=F.device)
-            patch[:, idx] = F.add(patch[:, idx], host_table(F, [z[k] for k in cols]))
-        H = F.add(H, patch)
+        H = F.add(H, add_host_coefficients(F, patch, z))
     return torch.cat([H, host_table(F, [z[n]])], dim=1)
+
+
+def add_host_coefficients(F, coeffs: torch.Tensor, z: list) -> torch.Tensor:
+    """Montgomery coefficients (24, n) plus the host integers z[:n] (a
+    polynomial's, mostly zero), added where they are nonzero."""
+    cols = [k for k in range(coeffs.shape[1]) if z[k]]
+    if cols:
+        idx = torch.tensor(cols, device=F.device)
+        coeffs[:, idx] = F.add(coeffs[:, idx], host_table(F, [z[k] for k in cols]))
+    return coeffs
 
 
 def witness_map(model, cs: R1CSConstraintSystem, primary, auxiliary,

@@ -27,6 +27,11 @@ class LinearCombination:
     def of_var(cls, index: int, coeff: int = 1):
         return cls([(index, coeff)])
 
+    @classmethod
+    def constant(cls, value: int):
+        """value * ONE; the empty combination for 0."""
+        return cls([(0, value)]) if value else cls()
+
     def __add__(self, other: "LinearCombination"):
         return LinearCombination(self.terms + other.terms)
 
@@ -75,6 +80,12 @@ class R1CSConstraintSystem:
     @property
     def num_constraints(self) -> int:
         return len(self.constraints)
+
+    @property
+    def num_square_constraints(self) -> int:
+        """Constraints flagged a == b (r1cs.hpp:119), which the R1CS -> SAP
+        reduction keeps as one square constraint each."""
+        return sum(1 for c in self.constraints if c.is_square)
 
     def add_constraint(self, c: R1CSConstraint):
         self.constraints.append(c)

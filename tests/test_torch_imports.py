@@ -29,7 +29,9 @@ def test_every_module_is_listed():
                  "ops.sequence_domains", "cli_generate_parameters", "ops.fixed_base",
                  "ops.frobenius", "proof_systems.ate_pairing", "proof_systems.groth16_full",
                  "reductions.r1cs_to_qap", "relations.r1cs", "relations.examples",
-                 "proof_systems.knowledge_commitment", "proof_systems.bg", "io.keys"):
+                 "proof_systems.knowledge_commitment", "proof_systems.bg", "io.keys",
+                 "reductions.r1cs_to_sap", "proof_systems.gm17", "proof_systems.pghr13",
+                 "relations.bacs", "reductions.bacs_to_r1cs", "proof_systems.bacs_ppzksnark"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
