@@ -46,13 +46,11 @@ its bytes held to bytes the host computes without any MSM; the
 verification key and ``verifier_strong_IC`` accepting the proof and
 rejecting a wrong input, a tampered A and a truncated input;
 ``kc_multi_exp_fused`` (which is ``kc_multi_exp``) against the prover's B
-MSMs, timed; then, on a key of at most d + 1 = 2^16 (``GROTH16_EXTRAS_MAX``;
-MNT4753 generates one at that size), the witness map, plain and with a
-random zero-knowledge patch, by the identity (A + d1 Z)(B + d2 Z) - (C + d3
-Z) = H Z at a random point, ``bg.prover`` with a random d against the
-host's scalars and its verifier, and the keys and the proof through
-``io.keys``, timed; and every kernel compared and timed at the blinded
-prove's lane counts.
+MSMs, timed; the witness map, plain and with a random zero-knowledge
+patch, by the identity (A + d1 Z)(B + d2 Z) - (C + d3 Z) = H Z at the key's
+t; ``bg.prover`` with a random d against the host's scalars and its
+verifier; the keys and the proof through ``io.keys``, timed; and every
+kernel compared and timed at the blinded prove's lane counts.
 
 Then, on the key generation's example, the ``gm17`` phase (GM17 on the
 R1CS -> SAP reduction: MNT4753 on a SAP domain of 2^21, MNT6753 of 2^16)
@@ -63,9 +61,11 @@ scalars replayed from the seed (the SAP or QAP at t by this script's own
 Lagrange basis); the proof against the host's scalars with no MSM; the
 witness map with the prover's zero-knowledge draws by its identity at t;
 the verdicts; and every kernel compared and timed at the prove's lane
-counts.  On MNT4753 the ``bacs`` phase proves a circuit of ``--bacs-gates``
-gates drawn from the seed and holds its keys and proof to PGHR13's on the
-circuit's R1CS.
+counts, and at the generator's where no earlier check of the curve
+compared them.  On MNT4753 the ``bacs`` phase proves a circuit of
+``--bacs-gates`` gates drawn from the seed and holds its keys and proof to
+PGHR13's on the circuit's R1CS, and the kernels are compared at its
+generator's and prover's new lane counts.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -426,7 +426,45 @@ def run_plain(plain, args, got):
     return plain_ms, err
 
 
-def check_dbl_at_path_shapes(model, curve, strip, name, shapes, errs):
+def compare_at(model, g1_strip, g2_strip, rng, name: str, shape, launches: int, errs, done):
+    """Kernel ``name`` against its plain version on the same inputs, and
+    timed, at ``shape`` (lanes; (lanes, k) for a doubling), which a path
+    launched ``launches`` times: the row.  Raises if they differ; adds
+    (name, shape) to ``done``."""
+    lanes, k = shape if name.startswith("ec_dbl") else (shape, 1)
+    if name == "mont_mul":
+        F = model.Fr
+        args = (random_field(F, lanes, rng), random_field(F, lanes, rng).roll(3, dims=1))
+        kern = lambda *a: cuda_field.mont_mul(F, *a)
+        plain = lambda *a: cuda_field.mont_mul_plain(F, *a)
+    else:
+        curve, strip = (model.G1, g1_strip) if name.endswith("_fp") else (model.G2, g2_strip)
+        args = point_tensors(model, curve, strip, lanes, 0)
+        if name.startswith("ec_dbl"):
+            kern = lambda *a: cuda_group.ec_dbl(curve, a, k)
+            plain = lambda *a: cuda_group.ec_dbl_plain(curve, a, k)
+        else:
+            args = (*args, *point_tensors(model, curve, strip, lanes, 9))
+            kern = lambda *a: cuda_group.ec_add(curve, a[:3], a[3:])
+            plain = lambda *a: cuda_group.ec_add_plain(curve, a[:3], a[3:])
+    got = as_tuple(kern(*args))
+    ms = time_ms(lambda: kern(*args), 20 if lanes >= 4096 else 200)
+    plain_ms, err = run_plain(plain, args, got)
+    del got, args
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"kernel {name} disagrees with its plain version at {lanes} lanes"
+                             + (f", k = {k}" if name.startswith("ec_dbl") else ""))
+    errs[name] = max(errs[name], err)
+    done.add((name, shape))
+    bound_ms, bound_by = bound(name, lanes, k)
+    return {"name": name, "lanes": lanes, **({"k": k} if name.startswith("ec_dbl") else {}),
+            "path_launches": launches, "equal": True, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+
+
+def check_dbl_at_path_shapes(model, g1_strip, g2_strip, name, shapes, errs, done):
     """A doubling kernel against its plain version, and timed, at every
     (lanes, k) of ``shapes`` ({(lanes, k): launches a prove}, the curve's
     proves' own, the largest prove's first) and at (BULK_DBL_LANES, 1).
@@ -435,30 +473,16 @@ def check_dbl_at_path_shapes(model, curve, strip, name, shapes, errs):
     doubling (over lanes and k)."""
     rows = []
     for (lanes, k), per_prove in [*shapes.items(), ((BULK_DBL_LANES, 1), 0)]:
-        P = point_tensors(model, curve, strip, lanes, 0)
-        kern = lambda *a: cuda_group.ec_dbl(curve, a, k)
-        got = as_tuple(kern(*P))
-        ms = time_ms(lambda: kern(*P), 20 if lanes >= 4096 else 200)
-        plain_ms, err = run_plain(lambda *a: cuda_group.ec_dbl_plain(curve, a, k), P, got)
-        if err:
-            raise AssertionError(f"kernel {name} disagrees with its plain version at {lanes} "
-                                 f"lanes, k = {k}")
-        errs[name] = max(errs[name], err)
-        del got, P
-        torch.cuda.empty_cache()
-        bound_ms, bound_by = bound(name, lanes, k)
-        row = {"name": name, "lanes": lanes, "k": k, "path_launches": per_prove,
-               "equal": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+        row = compare_at(model, g1_strip, g2_strip, None, name, (lanes, k), per_prove, errs, done)
         if per_prove:
-            row["us_per_doubling"] = ms * 1e3 / k
+            row["us_per_doubling"] = row["ms"] * 1e3 / k
         else:
-            row["ns_per_point_doubling"] = ms * 1e6 / (lanes * k)
+            row["ns_per_point_doubling"] = row["ms"] * 1e6 / (lanes * k)
         rows.append(row)
     return rows
 
 
-def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs,
+def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs, done,
                                  phase: str = "kernels_at_path_shapes"):
     """Every kernel of the model's path against its plain version, and
     timed, at the lane counts the main path launched it with
@@ -467,12 +491,14 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
     the doublings at every (lanes, k) their wrappers recorded in the
     curve's proves, and one large shape beside (check_dbl_at_path_shapes).
     The plain version runs in chunks of PLAIN_CHUNK lanes on the same
-    inputs; its time is the sum over the chunks."""
+    inputs; its time is the sum over the chunks.  ``done`` gathers the
+    shapes compared."""
     report, rows = {}, []
     for name in path_kernels(model):
+        curve = model.G1 if name.endswith("_fp") else model.G2
         if name.startswith("ec_dbl"):
-            curve, strip = (model.G1, g1_strip) if name.endswith("_fp") else (model.G2, g2_strip)
-            dbl_rows = check_dbl_at_path_shapes(model, curve, strip, name, path_lanes[name], errs)
+            dbl_rows = check_dbl_at_path_shapes(model, g1_strip, g2_strip, name, path_lanes[name],
+                                                errs, done)
             rows += dbl_rows
             keys = ("lanes", "k", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")
             report[name] = {**{k: dbl_rows[0][k] for k in (*keys, "us_per_doubling")},
@@ -484,34 +510,11 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
             continue
         seen = path_lanes[name]
         largest = max(seen)
-        commonest = max(seen, key=lambda k: (seen[k], k))
-        shapes = [largest] + [commonest] * (commonest != largest)
-        for lanes in shapes:
-            if name == "mont_mul":
-                F = model.Fr
-                args = (random_field(F, lanes, rng), random_field(F, lanes, rng).roll(3, dims=1))
-                kern = lambda *a: cuda_field.mont_mul(F, *a)
-                plain = lambda *a: cuda_field.mont_mul_plain(F, *a)
-            else:
-                curve, strip = (model.G1, g1_strip) if name.endswith("_fp") else (model.G2, g2_strip)
-                P = point_tensors(model, curve, strip, lanes, 0)
-                Q = point_tensors(model, curve, strip, lanes, 9)
-                args = (*P, *Q)
-                kern = lambda *a: cuda_group.ec_add(curve, a[:3], a[3:])
-                plain = lambda *a: cuda_group.ec_add_plain(curve, a[:3], a[3:])
-                del P, Q
-            got = as_tuple(kern(*args))
-            ms = time_ms(lambda: kern(*args), 20 if lanes >= 4096 else 200)
-            plain_ms, err = run_plain(plain, args, got)
-            bound_ms, bound_by = bound(name, lanes)
-            row = {"name": name, "lanes": lanes, "path_launches": seen.get(lanes, 0),
-                   "equal": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by, "ns_per_lane": ms * 1e6 / lanes,
-                   "share_of_bound": bound_ms / ms}
+        for lanes in sorted(largest_and_commonest(name, seen), reverse=True):
+            row = compare_at(model, g1_strip, g2_strip, rng, name, lanes, seen.get(lanes, 0),
+                             errs, done)
+            row["ns_per_lane"] = row["ms"] * 1e6 / lanes
             rows.append(row)
-            if err:
-                raise AssertionError(f"kernel {name} disagrees with its plain version at {lanes} lanes")
-            errs[name] = max(errs[name], err)
             if lanes == largest:
                 report[name] = {k: row[k] for k in ("lanes", "ms", "plain_ms", "bound_ms",
                                                     "bound_by", "ns_per_lane", "share_of_bound")}
@@ -520,10 +523,23 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
             else:
                 report[name]["commonest"] = {k: row[k] for k in (
                     "lanes", "path_launches", "ms", "plain_ms", "bound_ms", "bound_by")}
-            del got, args
-            torch.cuda.empty_cache()
     emit(phase, curve=model.name, compared=rows)
     return report
+
+
+def check_kernels_at_new_shapes(model, g1_strip, g2_strip, rng, lanes, errs, done, phase: str):
+    """Every kernel of the model's path against its plain version, and
+    timed, at the largest and the commonest shapes of ``lanes`` (a path's
+    kernel -> {shape: launches}) that no earlier check of the curve compared
+    (``done``)."""
+    rows = []
+    for name in path_kernels(model):
+        seen = lanes[name]
+        for shape in sorted(largest_and_commonest(name, seen)):
+            if (name, shape) not in done:
+                rows.append(compare_at(model, g1_strip, g2_strip, rng, name, shape, seen[shape],
+                                       errs, done))
+    emit(phase, curve=model.name, compared=rows)
 
 
 # --------------------------------------------------------------------------
@@ -637,17 +653,7 @@ def vanishing_at(fr, kind: str, n: int, tau: int) -> int:
     return z
 
 
-# worker processes (spawned by ``main``) for the Lagrange basis of large
-# domains, the longest host work of the checks; None: all in this process
-HOST_POOL = None
-BASIS_CHUNK = 1 << 16  # points of a run a worker takes at a time
-
-
-def host_map(fn, args: list) -> list:
-    """[fn(a) for a in args], on HOST_POOL's processes when there is one."""
-    if HOST_POOL is None or len(args) < 2:
-        return [fn(a) for a in args]
-    return list(HOST_POOL.map(fn, args))
+BASIS_CHUNK = 1 << 16  # points of a run a host process takes at a time
 
 
 def run_basis(args) -> list:
@@ -677,12 +683,13 @@ def sequence_denominators(args) -> list:
     return out
 
 
-def lagrange_at(fr, kind: str, n: int, tau: int):
+def lagrange_at(fr, kind: str, n: int, tau: int, pool):
     """(Z(tau), [L_i(tau)]) for the domain's points x_i: L_i(tau) =
     Z(tau) / (Z'(x_i) (tau - x_i)).  On a run, Z'(x) = (count base^count / x)
     prod over the other runs (x^count' - base'^count'), and that product is
     periodic in i; the geometric sequence domain (x_i = 2^i) takes O(n^2).
-    The points go out to ``host_map`` in chunks."""
+    The points go out in chunks to ``pool``, the host processes that
+    ``main`` spawns."""
     p = fr.p
     runs = domain_runs(fr, kind, n)
     if runs is None:
@@ -693,7 +700,7 @@ def lagrange_at(fr, kind: str, n: int, tau: int):
         for x in xs:
             z = z * (tau - x) % p
         step = -(-n // 64)
-        dens = chain.from_iterable(host_map(sequence_denominators, [
+        dens = chain.from_iterable(pool.map(sequence_denominators, [
             (p, tau, xs, s, min(step, n - s)) for s in range(0, n, step)]))
         return z, [z * v % p for v in batch_inverse(list(dens), p)]
     z = vanishing_at(fr, kind, n, tau)
@@ -713,20 +720,20 @@ def lagrange_at(fr, kind: str, n: int, tau: int):
                 v = v * (pow(x, k2, p) - c2) % p
             K.append(v)
         scale = [z * v % p for v in batch_inverse(K, p)]
-        out.extend(chain.from_iterable(host_map(run_basis, [
+        out.extend(chain.from_iterable(pool.map(run_basis, [
             (p, b, ratio, tau, scale, s, min(BASIS_CHUNK, k - s))
             for s in range(0, k, BASIS_CHUNK)])))
     return z, out
 
 
-def check_h(fr, kind: str, n: int, mont, h, rng):
+def check_h(fr, kind: str, n: int, mont, h, rng, pool):
     """H(tau) Z(tau) == A(tau) B(tau) - C(tau) at a random tau, with A, B, C
     evaluated from their values on the domain's points (computed here from
     the field's roots, independently of the device's domain) by the
     Lagrange basis at tau, and Z the domain's vanishing polynomial."""
     p = fr.p
     tau = rng.randrange(2, p)
-    z, L = lagrange_at(fr, kind, n, tau)
+    z, L = lagrange_at(fr, kind, n, tau, pool)
     rinv = pow(fr.R, -1, p)  # values are in Montgomery form
 
     def evaluate(vals):
@@ -815,7 +822,7 @@ def check_load(model, params_path: Path, input_path: Path, n: int):
          device_gb_per_s=(sizes["params"] + sizes["input"]) / (t5 - t3) / 1e9)
 
 
-def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
+def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int, pool):
     """One prove at d + 1 = m = n through ``prove_files``, checked against
     the host's exact-integer proof.  Returns this run's launch counts and
     lane counts, read from the wrappers."""
@@ -835,7 +842,7 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int):
     del h_dev, domain
     if h[n - 1] != 0:
         raise AssertionError("compute_h: the top coefficient of H is not zero")
-    check_h(hc.fr_spec, domain_name, n, mont, h, random.Random(seed))
+    check_h(hc.fr_spec, domain_name, n, mont, h, random.Random(seed), pool)
     t_hcheck = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -923,7 +930,7 @@ class HostComb:
         return self._affine(J)
 
 
-def host_keys(model, hc, ex, seed: int):
+def host_keys(model, hc, ex, seed: int, pool):
     """The generator's secrets and scalars, replayed from the seed on the
     host for its example ``ex`` (the keygen's own: the generator drew it
     first, with two draws, and applied the A/B swap): t, alpha, beta, delta
@@ -935,7 +942,7 @@ def host_keys(model, hc, ex, seed: int):
     rng.randrange(r), rng.randrange(r)  # the example's two draws
     cs = ex.constraint_system
     t, alpha, beta, delta = (rng.randrange(1, r) for _ in range(4))
-    zt, At, Bt, Ct = qap_at(model, hc, cs, t)
+    zt, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
     n = get_domain_of_min_size(model.Fr, cs.num_constraints + cs.primary_input_size + 1).n
     powers = [1] * (n - 1)  # t^i for the H query, i < d
     for i in range(1, n - 1):
@@ -945,7 +952,7 @@ def host_keys(model, hc, ex, seed: int):
             "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
 
 
-def qap_at(model, hc, cs, t: int):
+def qap_at(model, hc, cs, t: int, pool):
     """(Z(t), [A_i(t)], [B_i(t)], [C_i(t)]) for i <= m, by exact integers
     from this script's own Lagrange basis over the QAP domain's points:
     X_i(t) = sum over the rows j where variable i appears of L_j(t) X_{j,i},
@@ -954,7 +961,7 @@ def qap_at(model, hc, cs, t: int):
     r = model.Fr.p
     nc, nin, m = cs.num_constraints, cs.primary_input_size, cs.num_variables
     domain = get_domain_of_min_size(model.Fr, nc + nin + 1)
-    zt, L = lagrange_at(hc.fr_spec, type(domain).__name__, domain.n, t)
+    zt, L = lagrange_at(hc.fr_spec, type(domain).__name__, domain.n, t, pool)
     At, Bt, Ct = [0] * (m + 1), [0] * (m + 1), [0] * (m + 1)
     for i in range(nin + 1):
         At[i] = L[nc + i]
@@ -1043,7 +1050,7 @@ def wire_bytes(model, hc, A, B, C) -> bytes:
     return g1(A) + B_bytes + g1(C)
 
 
-def keygen(model, hc, workdir: Path, n: int, seed: int):
+def keygen(model, hc, workdir: Path, n: int, seed: int, pool):
     """The key generation path at d + 1 = n (m = n): ``generate_for_curve``
     on the card, with the launch counts set to 0 just before and read just
     after; the queries against exact multiplication; the generated files
@@ -1060,7 +1067,7 @@ def keygen(model, hc, workdir: Path, n: int, seed: int):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    keys = host_keys(model, hc, gen.example, seed)
+    keys = host_keys(model, hc, gen.example, seed, pool)
     t_replay = time.perf_counter() - t0
     t0 = time.perf_counter()
     checked = check_queries(model, hc, params_path, keys, n, seed)
@@ -1199,11 +1206,6 @@ def check_key_io(model, pk, vk, proof, workdir: Path):
     return secs, sizes
 
 
-# BG, the witness-map checks and the key files run on a key of at most this
-# d + 1: the rest of the groth16 phase runs at the key generation's size
-GROTH16_EXTRAS_MAX = 1 << 16
-
-
 def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     """The blinded Groth16 prover at the key generation's size, on its
     in-process proving key (``gen``) and the host's replay of its secrets
@@ -1212,8 +1214,7 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     bytes; ``verification_key`` + ``verifier_strong_IC`` accepting it and
     rejecting a wrong input, a tampered A and a truncated input;
     ``kc_multi_exp_fused`` over (B_query_g2, B_query_g1) against the
-    prover's B MSMs; then ``groth16_extras`` on the same key, or above
-    GROTH16_EXTRAS_MAX on a key generated at that size.  Returns the
+    prover's B MSMs; then ``groth16_extras`` on the same key.  Returns the
     prover's launch and lane counts."""
     rr, ex, pk = model.Fr.p, gen.example, gen.pk
     primary, aux = ex.primary_input, ex.auxiliary_input
@@ -1262,25 +1263,14 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     if not kc_out == from_proof == (hc.g2.mul(Bt, hc.g2_gen), g1b(Bt)):
         raise AssertionError(f"{hc.name}: kc_multi_exp_fused differs from the prover's B MSMs")
 
-    extras_n, t0 = min(n, GROTH16_EXTRAS_MAX), time.perf_counter()
-    if extras_n < n:
-        del at_t
-        gen = generate_for_curve(model, extras_n.bit_length() - 1, random.Random(seed), workdir,
-                                 Profiler(model.device, verbose=False))
-        for path in (gen.params_path, gen.input_path):
-            path.unlink()
-        keys = host_keys(model, hc, gen.example, seed)
-        at_t, vk = qap_at_t(model, keys), groth16_full.verification_key(gen.pk, gen.secrets)
-    t_extras_key = time.perf_counter() - t0
-    extras = groth16_extras(model, hc, workdir, extras_n, seed, gen, keys, at_t, vk, proof)
+    extras = groth16_extras(model, hc, workdir, n, seed, gen, keys, at_t, vk, proof)
     emit("groth16", curve=hc.name, d=n - 1, m=n, proof_sha256=got_sha, proof_equal=True,
          verifier={"accepts": True, "rejects": ["input + 1", "tampered A", "truncated input"]},
          witness_map={"top": ["0", "d1 d2"], "identity_at_random_tau": ["plain", "patched"]},
          bg={"equal": True, "verified": True}, kc_fused_equal=True,
-         extras_d_plus_1=extras_n, key_bytes=extras.pop("key_bytes"),
+         key_bytes=extras.pop("key_bytes"),
          seconds={"prove": t_prove, **dict(prof.cumulative), "verification_key": t_vk,
-                  "verify": t_verify, "kc_multi_exp_fused": t_kc,
-                  "extras_key": t_extras_key, **extras},
+                  "verify": t_verify, "kc_multi_exp_fused": t_kc, **extras},
          host_seconds={"expected_proof": t_expected},
          peak_device_bytes=peak, launches=launches, lanes=top_lanes(path_lanes))
     return launches, path_lanes
@@ -1394,7 +1384,7 @@ def sap_domain(model, cs):
     return type(domain).__name__, domain.n
 
 
-def sap_at_t(model, hc, cs, primary, auxiliary, t: int) -> dict:
+def sap_at_t(model, hc, cs, primary, auxiliary, t: int, pool) -> dict:
     """The R1CS -> SAP reduction of ``cs`` at t by exact integers, from the
     SAP's rows and this script's own Lagrange basis over the SAP domain's
     points (r1cs_to_sap.tcc:75-180): a non-square constraint a b = c gives
@@ -1407,7 +1397,7 @@ def sap_at_t(model, hc, cs, primary, auxiliary, t: int) -> dict:
     nvar, nin = cs.num_variables, cs.primary_input_size
     nonsq = sum(not c.is_square for c in cs.constraints)
     kind, n = sap_domain(model, cs)
-    z, L = lagrange_at(fr, kind, n, t)
+    z, L = lagrange_at(fr, kind, n, t, pool)
     m = nvar + nonsq + nin
     At, Ct, aA, aC = [0] * (m + 1), [0] * (m + 1), [0] * n, [0] * n
     w = [v % r for v in list(primary) + list(auxiliary)]
@@ -1498,7 +1488,7 @@ def proof_sha256(model, points) -> str:
     return h.hexdigest()
 
 
-def gm17_phase(model, hc, n: int, seed: int, ex):
+def gm17_phase(model, hc, n: int, seed: int, ex, pool):
     """GM17 at the key generation's size, on its example: ``gm17.generator``
     and ``gm17.prover`` (both drawing from ``--seed``), each with the launch
     counts set to 0 just before and read just after; every query family, the
@@ -1506,11 +1496,11 @@ def gm17_phase(model, hc, n: int, seed: int, ex):
     the scalars replayed on the host (the SAP at t by ``sap_at_t``); the
     proof against the host's scalars, with no MSM (gm17.py's docstring); the
     SAP witness map with the prover's d1, d2; the verdicts.  Returns the
-    prover's launch and lane counts."""
+    prover's launch and lane counts and the generator's lane counts."""
     rr, cs = model.Fr.p, ex.constraint_system
     primary, aux = ex.primary_input, ex.auxiliary_input
     kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
-    kp, t_gen, kg_launches, _, kg_peak = path_run(
+    kp, t_gen, kg_launches, kg_lanes, kg_peak = path_run(
         model, hc, "gm17 keygen", lambda: gm17.generator(model, cs, random.Random(seed), kg_prof))
     proof, t_prove, launches, lanes, peak = path_run(
         model, hc, "gm17 prove",
@@ -1526,7 +1516,7 @@ def gm17_phase(model, hc, n: int, seed: int, ex):
     alpha, beta, gamma, g_s, h_s = (rng.randrange(1, rr) for _ in range(5))
     draws = random.Random(seed)
     d1, d2, r = (draws.randrange(rr) for _ in range(3))
-    sap = sap_at_t(model, hc, cs, primary, aux, t)
+    sap = sap_at_t(model, hc, cs, primary, aux, t, pool)
     At, Ct, Z, l = sap["At"], sap["Ct"], sap["Zt"], cs.primary_input_size
     ab, g2z = (alpha + beta) % rr, gamma * gamma * Z % rr
     vq = [(gamma * c + ab * a) % rr for a, c in zip(At, Ct)]
@@ -1578,11 +1568,12 @@ def gm17_phase(model, hc, n: int, seed: int, ex):
                   "prove_phases": dict(prof.cumulative), **verdicts, "witness_map_check": wm},
          host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
          peak_device_bytes={"keygen": kg_peak, "prove": peak},
-         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes))
-    return launches, lanes
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    return launches, lanes, kg_lanes
 
 
-def pghr13_phase(model, hc, n: int, seed: int, ex):
+def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
     """PGHR13 at the key generation's size, on its example:
     ``pghr13.generator`` and ``pghr13.prover`` (both drawing from
     ``--seed``) with the launch counts set to 0 just before and read just
@@ -1591,11 +1582,11 @@ def pghr13_phase(model, hc, n: int, seed: int, ex):
     on the host (the QAP at t by ``qap_at``); the knowledge-commitment pairs,
     H and K against the host's scalars, with no MSM; the QAP witness map
     with the prover's d1, d2, d3; the verdicts.  Returns the prover's launch
-    and lane counts."""
+    and lane counts and the generator's lane counts."""
     rr, cs = model.Fr.p, ex.constraint_system
     primary, aux = ex.primary_input, ex.auxiliary_input
     kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
-    kp, t_gen, kg_launches, _, kg_peak = path_run(
+    kp, t_gen, kg_launches, kg_lanes, kg_peak = path_run(
         model, hc, "pghr13 keygen",
         lambda: pghr13.generator(model, cs, random.Random(seed), kg_prof))
     proof, t_prove, launches, lanes, peak = path_run(
@@ -1609,7 +1600,7 @@ def pghr13_phase(model, hc, n: int, seed: int, ex):
     rC = rA * rB % rr
     draws = random.Random(seed)
     d1, d2, d3 = (draws.randrange(rr) for _ in range(3))
-    Z, At, Bt, Ct = qap_at(model, hc, cs, t)
+    Z, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
     qap_n = get_domain_of_min_size(model.Fr, cs.num_constraints + len(primary) + 1).n
     m, l = cs.num_variables, len(primary)
     combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
@@ -1669,8 +1660,9 @@ def pghr13_phase(model, hc, n: int, seed: int, ex):
                   "prove_phases": dict(prof.cumulative), **verdicts, "witness_map_check": wm},
          host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
          peak_device_bytes={"keygen": kg_peak, "prove": peak},
-         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes))
-    return launches, lanes
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    return launches, lanes, kg_lanes
 
 
 def random_circuit(p: int, num_gates: int, seed: int):
@@ -1698,14 +1690,15 @@ def bacs_phase(model, hc, num_gates: int, seed: int):
     seed: ``bacs_ppzksnark.generator`` and ``prover`` with the launch counts
     set to 0 just before each and read just after; the key pair and the
     proof equal to PGHR13's on ``bacs_to_r1cs.instance_map`` with the same
-    seeds; the verdicts."""
+    seeds; the verdicts.  Returns the generator's and the prover's lane
+    counts."""
     circuit, primary, aux = random_circuit(model.Fr.p, num_gates, seed)
     if not circuit.is_satisfied(primary, aux):
         raise AssertionError("the drawn circuit is not satisfied")
-    kp, t_gen, kg_launches, _, _ = path_run(
+    kp, t_gen, kg_launches, kg_lanes, _ = path_run(
         model, hc, "bacs keygen",
         lambda: bacs_ppzksnark.generator(model, circuit, random.Random(seed)))
-    proof, t_prove, launches, _, peak = path_run(
+    proof, t_prove, launches, lanes, peak = path_run(
         model, hc, "bacs prove",
         lambda: bacs_ppzksnark.prover(model, kp.pk, primary, aux, random.Random(seed + 1)))
     cs = bacs_to_r1cs.instance_map(circuit)
@@ -1733,7 +1726,16 @@ def bacs_phase(model, hc, num_gates: int, seed: int):
          proof_sha256=proof_sha256(model, points), equal_to_pghr13=True, verified=True,
          rejects=["input + 1"], seconds={"generate": t_gen, "prove": t_prove,
                                          "pghr13_generate_and_prove": t_pghr13, "verify": t_verify},
-         peak_device_bytes=peak, launches={"keygen": kg_launches, "prove": launches})
+         peak_device_bytes=peak, launches={"keygen": kg_launches, "prove": launches},
+         lanes={"keygen": top_lanes(kg_lanes), "prove": top_lanes(lanes)})
+    return {"generator": kg_lanes, "prover": lanes}
+
+
+def largest_and_commonest(name: str, seen: dict) -> set:
+    """The largest shape of ``seen`` ({shape: launches}; a doubling's (lanes,
+    k) by lanes times k) and the one launched most."""
+    size = (lambda s: (s[0] * s[1], s)) if name.startswith("ec_dbl") else (lambda s: s)
+    return {max(seen, key=size), max(seen, key=lambda s: (seen[s], s))}
 
 
 def shape_picks(lanes: dict) -> dict:
@@ -1742,12 +1744,13 @@ def shape_picks(lanes: dict) -> dict:
     out = dict(lanes)
     for name in (k for k in lanes if k.startswith("ec_dbl")):
         seen = lanes[name]
-        picks = [max(seen, key=lambda s: (s[0] * s[1], s)), max(seen, key=lambda s: (seen[s], s))]
+        picks = sorted(largest_and_commonest(name, seen), key=lambda s: (s[0] * s[1], s),
+                       reverse=True)
         out[name] = {s: seen[s] for s in picks}
     return out
 
 
-def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
+def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     """All phases of one curve.  Returns the launch counts of its largest
     prove and the kernels' numbers at that prove's lane counts, then the
     same for its key generation and for its blinded Groth16, GM17 and PGHR13
@@ -1756,11 +1759,16 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
     rng = random.Random(args.seed)
+    done = set()  # the (kernel, shape) pairs compared on this curve
+    at_shapes = lambda lanes, phase: check_kernels_at_path_shapes(
+        model, g1_strip, g2_strip, rng, lanes, errs, done, phase)
+    at_new_shapes = lambda lanes, phase: check_kernels_at_new_shapes(
+        model, g1_strip, g2_strip, rng, lanes, errs, done, phase)
     check_kernels(model, g1_strip, g2_strip, rng, errs, (1, default_window_bits(max(sizes))))
     prove_small(curve, workdir)
     runs = []
     for n in sizes:  # ascending: the last prove is the largest
-        runs.append(prove_full(model, hc, g1_strip, g2_strip, workdir, n, args.seed))
+        runs.append(prove_full(model, hc, g1_strip, g2_strip, workdir, n, args.seed, pool))
         torch.cuda.empty_cache()
     launches, path_lanes = runs[-1]
     # the doublings at every prove's (lanes, k), the largest prove's first
@@ -1768,40 +1776,40 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict):
         for name in (k for k in lanes if k.startswith("ec_dbl")):
             for shape, count in lanes[name].items():
                 path_lanes[name].setdefault(shape, count)
-    report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, errs)
+    report = at_shapes(path_lanes, "kernels_at_path_shapes")
     torch.cuda.empty_cache()
 
-    kg_launches, kg_lanes, gen, keys = keygen(model, hc, workdir, args.keygen[curve], args.seed)
+    kg_launches, kg_lanes, gen, keys = keygen(model, hc, workdir, args.keygen[curve], args.seed,
+                                              pool)
     torch.cuda.empty_cache()
-    kg_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, shape_picks(kg_lanes),
-                                             errs, phase="kernels_at_keygen_shapes")
+    kg_report = at_shapes(shape_picks(kg_lanes), "kernels_at_keygen_shapes")
     torch.cuda.empty_cache()
 
     g16_launches, g16_lanes = groth16(model, hc, workdir, args.keygen[curve], args.seed, gen, keys)
     ex = gen.example
     del gen, keys
     torch.cuda.empty_cache()
-    g16_report = check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng,
-                                              shape_picks(g16_lanes), errs,
-                                              phase="kernels_at_groth16_shapes")
+    g16_report = at_shapes(shape_picks(g16_lanes), "kernels_at_groth16_shapes")
     torch.cuda.empty_cache()
 
-    # GM17 and PGHR13 on the key generation's example, then BACS
+    # GM17 and PGHR13 on the key generation's example, then BACS; the kernels
+    # also at their generators' and BACS's shapes that are new on this curve
     more = []
     for name, phase in (("gm17", gm17_phase), ("pghr13", pghr13_phase)):
-        path_launches, path_lanes = phase(model, hc, args.keygen[curve], args.seed, ex)
+        path_launches, path_lanes, gen_lanes = phase(model, hc, args.keygen[curve], args.seed, ex,
+                                                     pool)
         torch.cuda.empty_cache()
-        more.append((path_launches, check_kernels_at_path_shapes(
-            model, g1_strip, g2_strip, rng, shape_picks(path_lanes), errs,
-            phase=f"kernels_at_{name}_shapes")))
+        more.append((path_launches, at_shapes(shape_picks(path_lanes), f"kernels_at_{name}_shapes")))
+        at_new_shapes(gen_lanes, f"kernels_at_{name}_generator_shapes")
         torch.cuda.empty_cache()
     if curve == "MNT4753" and args.bacs_gates:
-        bacs_phase(model, hc, args.bacs_gates, args.seed)
+        for what, lanes in bacs_phase(model, hc, args.bacs_gates, args.seed).items():
+            torch.cuda.empty_cache()
+            at_new_shapes(lanes, f"kernels_at_bacs_{what}_shapes")
     return (launches, report, (kg_launches, kg_report), (g16_launches, g16_report), *more)
 
 
 def main(argv=None) -> int:
-    global HOST_POOL
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1853,13 +1861,12 @@ def main(argv=None) -> int:
     errs, results = {}, {}
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
+        # host processes for the Lagrange basis of the checks, their longest host work
         with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                                  mp_context=multiprocessing.get_context("spawn")) as pool:
-            HOST_POOL = pool
             for curve in curves:
-                results[curve] = run_curve(curve, sizes[curve], args, workdir, errs)
+                results[curve] = run_curve(curve, sizes[curve], args, workdir, errs, pool)
     finally:
-        HOST_POOL = None
         shutil.rmtree(workdir, ignore_errors=True)
 
     # one entry per kernel: its numbers from the first curve whose path runs it,

@@ -104,11 +104,10 @@ def quotient_coefficients(F, domain, ca, cb, cc):
     """The FFT dance (tcc:243-330, main.cpp:105-163): the evaluations of
     A, B and C on the domain, Montgomery words (24, n) -> the n
     coefficients of H = (A B - C) / Z, computed on the coset, where Z does
-    not vanish."""
+    not vanish.  ``cb`` None: B = A, H = (A^2 - C) / Z (the SAP's)."""
     a = domain.coset_fft(domain.ifft(ca))
-    b = domain.coset_fft(domain.ifft(cb))
-    hab = F.mul(a, b)
-    del a, b
+    hab = F.sqr(a) if cb is None else F.mul(a, domain.coset_fft(domain.ifft(cb)))
+    del a
     h = F.sub(hab, domain.coset_fft(domain.ifft(cc)))
     del hab
     return domain.icoset_fft(domain.divide_by_z_on_coset(h))

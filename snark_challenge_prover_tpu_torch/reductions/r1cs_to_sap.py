@@ -35,7 +35,7 @@ import torch
 from ..ops.fft import get_domain_of_min_size, get_evaluation_domain, host_table
 from ..ops.field import canonical_words
 from ..relations.r1cs import R1CSConstraintSystem
-from .r1cs_to_qap import add_host_coefficients
+from .r1cs_to_qap import add_host_coefficients, quotient_coefficients
 
 
 def sap_min_size(cs: R1CSConstraintSystem) -> int:
@@ -163,25 +163,21 @@ def assemble_ac_evaluations(cs: R1CSConstraintSystem, full, F):
 def witness_map_device(model, ca, cc, d1: int = 0, d2: int = 0):
     """The evaluations of A and C on the domain (Montgomery words (24, n) on
     the model's device) -> H's n + 1 coefficients (24, n + 1): H = (A A -
-    C) / Z by iFFT -> cosetFFT -> square -> divide by Z -> icosetFFT
-    (tcc:421-540), plus, with d1 or d2 nonzero, 2 d1 A - d2 + d1^2 Z in
+    C) / Z by the QAP's FFT dance with A squared (``quotient_coefficients``,
+    tcc:421-540), plus, with d1 or d2 nonzero, 2 d1 A - d2 + d1^2 Z in
     coefficient form (tcc:443-456), Z the domain's own vanishing polynomial
     (``add_poly_Z``); the top coefficient is d1^2 times Z's."""
     F = model.Fr
     p = F.p
     n = ca.shape[1]
     domain = get_evaluation_domain(F, n)
-    A = domain.ifft(ca)
-    a = domain.coset_fft(A)
-    h = F.sub(F.sqr(a), domain.coset_fft(domain.ifft(cc)))
-    del a
-    H = domain.icoset_fft(domain.divide_by_z_on_coset(h))
-    del h
+    H = quotient_coefficients(F, domain, ca, None, cc)
     z = [0] * (n + 1)
     if d1 % p or d2 % p:
         domain.add_poly_Z(d1 * d1 % p, z)
         z[0] = (z[0] - d2) % p
-        H = F.add(H, add_host_coefficients(F, F.mul_const(A, F.const(2 * d1 % p)), z))
+        A = F.mul_const(domain.ifft(ca), F.const(2 * d1 % p))
+        H = F.add(H, add_host_coefficients(F, A, z))
     return torch.cat([H, host_table(F, [z[n]])], dim=1)
 
 
