@@ -170,8 +170,12 @@ def path_kernels(model):
     return ["mont_mul", "ec_add_fp", f"ec_add_{g2}", "ec_dbl_fp", f"ec_dbl_{g2}"]
 
 
+START = time.perf_counter()  # when the script started, for each line's "at_seconds"
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_seconds": time.perf_counter() - START}), flush=True)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -429,8 +433,11 @@ def run_plain(plain, args, got):
 def compare_at(model, g1_strip, g2_strip, rng, name: str, shape, launches: int, errs, done):
     """Kernel ``name`` against its plain version on the same inputs, and
     timed, at ``shape`` (lanes; (lanes, k) for a doubling), which a path
-    launched ``launches`` times: the row.  Raises if they differ; adds
-    (name, shape) to ``done``."""
+    launched ``launches`` times: the row.  Raises if they differ.  ``done``
+    keeps each (name, shape)'s row: a shape compared before on this curve
+    gives that row again, marked "reused", with this path's launches."""
+    if (name, shape) in done:
+        return {**done[name, shape], "path_launches": launches, "reused": True}
     lanes, k = shape if name.startswith("ec_dbl") else (shape, 1)
     if name == "mont_mul":
         F = model.Fr
@@ -456,12 +463,13 @@ def compare_at(model, g1_strip, g2_strip, rng, name: str, shape, launches: int, 
         raise AssertionError(f"kernel {name} disagrees with its plain version at {lanes} lanes"
                              + (f", k = {k}" if name.startswith("ec_dbl") else ""))
     errs[name] = max(errs[name], err)
-    done.add((name, shape))
     bound_ms, bound_by = bound(name, lanes, k)
-    return {"name": name, "lanes": lanes, **({"k": k} if name.startswith("ec_dbl") else {}),
-            "path_launches": launches, "equal": True, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms}
+    done[name, shape] = {
+        "name": name, "lanes": lanes, **({"k": k} if name.startswith("ec_dbl") else {}),
+        "path_launches": launches, "equal": True, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / ms}
+    return dict(done[name, shape])
 
 
 def check_dbl_at_path_shapes(model, g1_strip, g2_strip, name, shapes, errs, done):
@@ -491,8 +499,8 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
     the doublings at every (lanes, k) their wrappers recorded in the
     curve's proves, and one large shape beside (check_dbl_at_path_shapes).
     The plain version runs in chunks of PLAIN_CHUNK lanes on the same
-    inputs; its time is the sum over the chunks.  ``done`` gathers the
-    shapes compared."""
+    inputs; its time is the sum over the chunks.  ``done`` holds the rows
+    of the shapes compared on the curve (``compare_at``)."""
     report, rows = {}, []
     for name in path_kernels(model):
         curve = model.G1 if name.endswith("_fp") else model.G2
@@ -564,7 +572,7 @@ def prove_small(curve: str, workdir: Path):
 SHIFTS = {"A": 0, "B1": 1, "L": 2, "H": 3}  # where each G1 query starts in the strip
 
 
-def write_files(workdir: Path, hc, g1_strip, g2_strip, n: int, seed: int):
+def write_files(workdir: Path, hc, g1_strip, g2_strip, n: int, seed: int, pool):
     """Parameters and input in the wire format for d + 1 = m = n.  Returns
     the Montgomery integers of the input, which the host checks need."""
     d, m = n - 1, n
@@ -602,7 +610,8 @@ def write_files(workdir: Path, hc, g1_strip, g2_strip, n: int, seed: int):
     ca_raw, cb_raw, r_raw = rand_mont(n), rand_mont(n), rand_mont(1)
     ca, cb = to_ints(ca_raw), to_ints(cb_raw)
     rinv = pow(fr.R, -1, fr.p)
-    cc = [a * b * rinv % fr.p for a, b in zip(ca, cb)]  # Montgomery form of ca * cb
+    cc = list(chain.from_iterable(pool.map(mont_products, [  # Montgomery form of ca * cb
+        (a, b, rinv, fr.p) for a, b in zip(pieces(ca), pieces(cb))])))
     with open(input_path, "wb") as f:
         f.write(w_raw.tobytes())
         f.write(ca_raw.tobytes())
@@ -726,6 +735,50 @@ def lagrange_at(fr, kind: str, n: int, tau: int, pool):
     return z, out
 
 
+HOST_PIECES = 16  # tasks a host computation over many values is cut into for the pool
+
+
+def pieces(seq) -> list:
+    """``seq`` cut into at most HOST_PIECES consecutive slices, all but the
+    last of one length."""
+    step = max(1, -(-len(seq) // HOST_PIECES))
+    return [seq[s : s + step] for s in range(0, len(seq), step)]
+
+
+def comb_muls(args) -> list:
+    comb, scalars = args
+    return [comb.mul(s) for s in scalars]
+
+
+def pool_muls(pool, comb, scalars) -> list:
+    """[comb.mul(s) for s in scalars] (``comb`` a HostComb), in pieces over
+    ``pool``."""
+    return list(chain.from_iterable(pool.map(comb_muls, [(comb, part)
+                                                         for part in pieces(scalars)])))
+
+
+def horner_piece(args) -> int:
+    coeffs, x, p = args
+    return horner(coeffs, x, p)
+
+
+def pool_horner(pool, coeffs, x: int, p: int) -> int:
+    """horner(coeffs, x, p) with the coefficients in pieces over ``pool``:
+    the pieces' values P_k(x), highest first, joined by Horner's rule in
+    x^(piece length)."""
+    parts = pieces(coeffs)
+    vals = list(pool.map(horner_piece, [(part, x, p) for part in parts]))
+    step, acc = pow(x, len(parts[0]), p), 0
+    for v in reversed(vals):
+        acc = (acc * step + v) % p
+    return acc
+
+
+def mont_products(args) -> list:
+    a, b, rinv, p = args
+    return [x * y * rinv % p for x, y in zip(a, b)]
+
+
 def check_h(fr, kind: str, n: int, mont, h, rng, pool):
     """H(tau) Z(tau) == A(tau) B(tau) - C(tau) at a random tau, with A, B, C
     evaluated from their values on the domain's points (computed here from
@@ -740,7 +793,7 @@ def check_h(fr, kind: str, n: int, mont, h, rng, pool):
         return sum(v * wt for v, wt in zip(vals, L)) % p * rinv % p
 
     a, b, c = evaluate(mont["ca"]), evaluate(mont["cb"]), evaluate(mont["cc"])
-    if horner(h, tau, p) * z % p != (a * b - c) % p:
+    if pool_horner(pool, h, tau, p) * z % p != (a * b - c) % p:
         raise AssertionError(f"compute_h ({kind}): H(tau) Z(tau) != A(tau) B(tau) - C(tau)")
 
 
@@ -827,7 +880,7 @@ def prove_full(model, hc, g1_strip, g2_strip, workdir: Path, n: int, seed: int, 
     the host's exact-integer proof.  Returns this run's launch counts and
     lane counts, read from the wrappers."""
     t0 = time.perf_counter()
-    params_path, input_path, mont = write_files(workdir, hc, g1_strip, g2_strip, n, seed)
+    params_path, input_path, mont = write_files(workdir, hc, g1_strip, g2_strip, n, seed, pool)
     t_files = time.perf_counter() - t0
     check_load(model, params_path, input_path, n)
 
@@ -936,7 +989,8 @@ def host_keys(model, hc, ex, seed: int, pool):
     first, with two draws, and applied the A/B swap): t, alpha, beta, delta
     and g1_scalar, in the generator's order of draws.  The QAP at t is
     evaluated here from the constraints and this script's own Lagrange
-    basis (``qap_at``), not by the port's instance map."""
+    basis (``qap_at``), not by the port's instance map; "at_t" holds the
+    witness's sums at t (``qap_at_t``)."""
     rng = random.Random(seed)
     r = model.Fr.p
     rng.randrange(r), rng.randrange(r)  # the example's two draws
@@ -947,9 +1001,11 @@ def host_keys(model, hc, ex, seed: int, pool):
     powers = [1] * (n - 1)  # t^i for the H query, i < d
     for i in range(1, n - 1):
         powers[i] = powers[i - 1] * t % r
-    return {"w": [1] + ex.primary_input + ex.auxiliary_input, "nin": cs.primary_input_size,
+    keys = {"w": [1] + ex.primary_input + ex.auxiliary_input, "nin": cs.primary_input_size,
             "t": t, "At": At, "Bt": Bt, "Ct": Ct, "Zt": zt, "Ht": powers,
             "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
+    keys["at_t"] = qap_at_t(model, keys)
+    return keys
 
 
 def qap_at(model, hc, cs, t: int, pool):
@@ -981,10 +1037,11 @@ def read_point(raw: np.ndarray, off: int, deg: int, spec):
     return (vals[0], vals[1]) if deg == 1 else (tuple(vals[:deg]), tuple(vals[deg:]))
 
 
-def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int):
+def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int, pool):
     """A, B1, B2, L and H of the generated params file against exact
-    multiplication: the first and last entries, 256 random ones and every
-    identity, and the identities' positions against the zero scalars."""
+    multiplication (on ``pool``): the first and last entries, 256 random
+    ones and every identity, and the identities' positions against the zero
+    scalars."""
     r, deg = model.Fr.p, model.g2_deg
     d, m = n - 1, n
     dinv = pow(keys["delta"], -1, r)
@@ -1009,9 +1066,11 @@ def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int):
                                  f"zero scalars at {zero_scalars[:8]}")
         picks = sorted({0, len(scalars) - 1, *zero_scalars,
                         *rng.sample(range(len(scalars)), min(256, len(scalars)))})
-        for i in picks:
-            s = scalars[i] if k > 1 else scalars[i] * g1s % r  # G1 queries: s times g1_scalar G
-            if read_point(raw, off + i * size, k, hc.fq_spec) != combs[k].mul(s):
+        # G1 queries: s times g1_scalar G
+        want = pool_muls(pool, combs[k], [scalars[i] if k > 1 else scalars[i] * g1s % r
+                                          for i in picks])
+        for i, P in zip(picks, want):
+            if read_point(raw, off + i * size, k, hc.fq_spec) != P:
                 raise AssertionError(f"{hc.name} keygen {key}[{i}] differs from exact multiplication")
         checked[key] = {"entries": len(picks), "identities": len(zero_scalars)}
         off += len(scalars) * size
@@ -1023,16 +1082,17 @@ def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int):
 def expected_keygen_proof(model, hc, keys: dict, input_path: Path) -> bytes:
     """The proof of the generated files by exact integers, with no MSM:
     A = A(t) g1b, B = B(t) G2 and C = ((A(t) B(t) - C(t)) / delta + sum_{i>=2}
-    w_i L_i + r B(t)) g1b, with g1b = g1_scalar G1, X(t) = sum_i w_i X_i(t),
-    and h(t) Z(t) = A(t) B(t) - C(t) standing for the H query's sum."""
-    rr, w = model.Fr.p, keys["w"]
+    w_i L_i + r B(t)) g1b, with g1b = g1_scalar G1, X(t) = sum_i w_i X_i(t)
+    and sum_{i>=2} w_i L_i from ``keys["at_t"]`` (the example has one input,
+    so its sum over i > 1 is this), and h(t) Z(t) = A(t) B(t) - C(t)
+    standing for the H query's sum."""
+    rr, at_t = model.Fr.p, keys["at_t"]
     dinv = pow(keys["delta"], -1, rr)
-    At, Bt, Ct = (sum(wi * v for wi, v in zip(w, keys[k])) % rr for k in ("At", "Bt", "Ct"))
-    Lsum = sum(wi * ((keys["beta"] * a + keys["alpha"] * b + c) % rr) for wi, a, b, c in
-               zip(w[2:], keys["At"][2:], keys["Bt"][2:], keys["Ct"][2:])) * dinv % rr
-    raw = input_path.read_bytes()
-    r_blind = model.Fr.spec.from_mont(int.from_bytes(raw[-96:], "little"))
-    c_scalar = ((At * Bt - Ct) * dinv + Lsum + r_blind * Bt) % rr
+    At, Bt, Ct = at_t["A"], at_t["B"], at_t["C"]
+    with open(input_path, "rb") as f:
+        f.seek(-96, os.SEEK_END)
+        r_blind = model.Fr.spec.from_mont(int.from_bytes(f.read(), "little"))
+    c_scalar = ((At * Bt - Ct + at_t["L"]) * dinv + r_blind * Bt) % rr
     g1s = keys["g1_scalar"]
     return wire_bytes(model, hc, hc.g1.mul(At * g1s % rr, hc.g1_gen), hc.g2.mul(Bt, hc.g2_gen),
                       hc.g1.mul(c_scalar * g1s % rr, hc.g1_gen))
@@ -1070,7 +1130,7 @@ def keygen(model, hc, workdir: Path, n: int, seed: int, pool):
     keys = host_keys(model, hc, gen.example, seed, pool)
     t_replay = time.perf_counter() - t0
     t0 = time.perf_counter()
-    checked = check_queries(model, hc, params_path, keys, n, seed)
+    checked = check_queries(model, hc, params_path, keys, n, seed, pool)
     t_checks = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1129,7 +1189,7 @@ def blinded_scalars(model, keys: dict, at_t: dict, r: int, s: int, d: int = 1):
     return a, b, (htlt * pow(d, -1, rr) + s * a + r * b - r * s * dl) % rr
 
 
-def check_witness_map(model, cs, ex, n: int, t: int, z: int, at_t: dict, patches):
+def check_witness_map(model, cs, ex, n: int, t: int, z: int, at_t: dict, patches, pool):
     """The QAP witness map at full size, on one set of A, B and C words:
     for each (d1, d2, d3) of ``patches``, ``witness_map_device``'s top
     coefficient is d1 d2 (Z's is 1) and (A(t) + d1 Z(t)) (B(t) + d2 Z(t)) -
@@ -1154,7 +1214,8 @@ def check_witness_map(model, cs, ex, n: int, t: int, z: int, at_t: dict, patches
         coeffs = words_to_ints(Fr.to_canonical(H).cpu().numpy())
         if coeffs[n] != d1 * d2 % p:
             raise AssertionError(f"{model.name}: witness map's top coefficient is not d1 d2")
-        if horner(coeffs, t, p) * z % p != ((A + d1 * z) * (B + d2 * z) - (C + d3 * z)) % p:
+        if pool_horner(pool, coeffs, t, p) * z % p != ((A + d1 * z) * (B + d2 * z)
+                                                       - (C + d3 * z)) % p:
             raise AssertionError(f"{model.name}: witness map with d = {(d1, d2, d3) != (0, 0, 0)}"
                                  ": H(t) Z(t) != A'(t) B'(t) - C'(t)")
         secs["identity_check"] += time.perf_counter() - t0
@@ -1206,7 +1267,7 @@ def check_key_io(model, pk, vk, proof, workdir: Path):
     return secs, sizes
 
 
-def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
+def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict, pool):
     """The blinded Groth16 prover at the key generation's size, on its
     in-process proving key (``gen``) and the host's replay of its secrets
     (``keys``): ``groth16_full.prover`` with the launch counts set to 0 just
@@ -1226,7 +1287,7 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
         lambda: groth16_full.prover(model, pk, primary, aux, random.Random(seed), profiler=prof))
 
     t0 = time.perf_counter()
-    at_t = qap_at_t(model, keys)
+    at_t = keys["at_t"]
     blind = random.Random(seed)
     r, s = blind.randrange(rr), blind.randrange(rr)  # the prover's draws, in its order
     a, b, c = blinded_scalars(model, keys, at_t, r, s)
@@ -1242,7 +1303,7 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     vk = groth16_full.verification_key(pk, gen.secrets)
     t_vk = time.perf_counter() - t0
     t_verify = check_verdicts(hc, groth16_full, vk, primary, proof, groth16_full.Proof(
-        hc.g1.add(proof.g_A, hc.g1_gen), proof.g_B, proof.g_C))["verify"]
+        hc.g1.add(proof.g_A, hc.g1_gen), proof.g_B, proof.g_C), pool)["verify"]
 
     # the knowledge commitment over (B_query_g2, B_query_g1)
     Fr, G1, G2 = model.Fr, model.G1, model.G2
@@ -1263,7 +1324,7 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
     if not kc_out == from_proof == (hc.g2.mul(Bt, hc.g2_gen), g1b(Bt)):
         raise AssertionError(f"{hc.name}: kc_multi_exp_fused differs from the prover's B MSMs")
 
-    extras = groth16_extras(model, hc, workdir, n, seed, gen, keys, at_t, vk, proof)
+    extras = groth16_extras(model, hc, workdir, n, seed, gen, keys, at_t, vk, proof, pool)
     emit("groth16", curve=hc.name, d=n - 1, m=n, proof_sha256=got_sha, proof_equal=True,
          verifier={"accepts": True, "rejects": ["input + 1", "tampered A", "truncated input"]},
          witness_map={"top": ["0", "d1 d2"], "identity_at_random_tau": ["plain", "patched"]},
@@ -1277,7 +1338,7 @@ def groth16(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict):
 
 
 def groth16_extras(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict, at_t: dict, vk,
-                   proof) -> dict:
+                   proof, pool) -> dict:
     """On the key ``gen`` of d + 1 = n with its host replay ``keys`` and
     verification key ``vk``: the witness map (``check_witness_map``, plain
     and patched); ``bg.prover`` with a random d != 1 against the host's
@@ -1289,7 +1350,8 @@ def groth16_extras(model, hc, workdir: Path, n: int, seed: int, gen, keys: dict,
     g1b = lambda k: hc.g1.mul(k * keys["g1_scalar"] % rr, hc.g1_gen)
     wm_rng = random.Random(seed)
     wm_seconds = check_witness_map(model, pk.constraint_system, ex, n, keys["t"], keys["Zt"], at_t,
-                                   [(0, 0, 0), tuple(wm_rng.randrange(1, rr) for _ in range(3))])
+                                   [(0, 0, 0), tuple(wm_rng.randrange(1, rr) for _ in range(3))],
+                                   pool)
 
     d = random.Random(seed).randrange(2, rr)
     bg_prof = Profiler(model.device, verbose=False)
@@ -1354,11 +1416,11 @@ class Powers:
         return pow(self.t, i, self.p)
 
 
-def check_family(model, hc, key: str, pair, values, coeff: int, comb, rng) -> dict:
-    """One query family on the card against exact multiplication (``comb``)
-    of its scalars coeff * values[i], coeff nonzero: every identity's
-    position against the zero values' (none for ``Powers``), then the first
-    and last entries, 256 random ones and a few identities."""
+def check_family(model, hc, key: str, pair, values, coeff: int, comb, rng, pool) -> dict:
+    """One query family on the card against exact multiplication (``comb``,
+    on ``pool``) of its scalars coeff * values[i], coeff nonzero: every
+    identity's position against the zero values' (none for ``Powers``),
+    then the first and last entries, 256 random ones and a few identities."""
     r = model.Fr.p
     if coeff % r == 0 or pair[0].shape[-1] != len(values):
         raise AssertionError(f"{hc.name} {key}: {pair[0].shape[-1]} entries, {len(values)} expected")
@@ -1369,8 +1431,9 @@ def check_family(model, hc, key: str, pair, values, coeff: int, comb, rng) -> di
                              f"{zero_values[:8]}")
     picks = sorted({0, len(values) - 1, *zero_values[:4], *zero_values[-4:],
                     *rng.sample(range(len(values)), min(256, len(values)))})
-    for i, P in zip(picks, device_points(model, pair, picks)):
-        if P != comb.mul(coeff * values[i] % r):
+    want = pool_muls(pool, comb, [coeff * values[i] % r for i in picks])
+    for i, P, Q in zip(picks, device_points(model, pair, picks), want):
+        if P != Q:
             raise AssertionError(f"{hc.name} {key}[{i}] differs from exact multiplication")
     return {"entries": len(picks), "identities": len(zero_values)}
 
@@ -1435,7 +1498,7 @@ def sap_at_t(model, hc, cs, primary, auxiliary, t: int, pool) -> dict:
             "A": sum(u * v for u, v in zip(L, aA)) % r, "C": sum(u * v for u, v in zip(L, aC)) % r}
 
 
-def check_sap_witness_map(model, sap: dict, t: int, d1: int, d2: int) -> dict:
+def check_sap_witness_map(model, sap: dict, t: int, d1: int, d2: int, pool) -> dict:
     """The SAP witness map on the card for this script's own A and C on the
     domain and the prover's d1, d2: H's top coefficient is d1^2 (Z's is 1)
     and (A(t) + d1 Z(t))^2 - (C(t) + d2 Z(t)) = H(t) Z(t).  Returns seconds."""
@@ -1453,23 +1516,34 @@ def check_sap_witness_map(model, sap: dict, t: int, d1: int, d2: int) -> dict:
     coeffs = words_to_ints(Fr.to_canonical(H).cpu().numpy())
     if len(coeffs) != n + 1 or coeffs[n] != d1 * d1 % p:
         raise AssertionError(f"{model.name}: the SAP witness map's top coefficient is not d1^2")
-    if horner(coeffs, t, p) * z % p != ((sap["A"] + d1 * z) ** 2 - (sap["C"] + d2 * z)) % p:
+    if pool_horner(pool, coeffs, t, p) * z % p != ((sap["A"] + d1 * z) ** 2
+                                                   - (sap["C"] + d2 * z)) % p:
         raise AssertionError(f"{model.name}: SAP witness map: H(t) Z(t) != A'(t)^2 - C'(t)")
     return {"device": t_dev, "identity_check": time.perf_counter() - t0}
 
 
-def check_verdicts(hc, system, vk, primary, proof, tampered) -> dict:
+def verdict(args) -> bool:
+    verifier, vk, inputs, proof = args
+    return verifier(vk, inputs, proof)
+
+
+def check_verdicts(hc, system, vk, primary, proof, tampered, pool) -> dict:
     """``verifier_strong_IC`` accepts the proof and rejects a wrong input, a
-    tampered proof and a truncated input.  Returns the verification's seconds."""
+    tampered proof and a truncated input; the three rejections run on
+    ``pool`` while this process times the acceptance.  Returns the
+    acceptance's seconds and those of all four verdicts."""
     rr = hc.fr_spec.p
     t0 = time.perf_counter()
+    wrong = {what: pool.submit(verdict, (system.verifier_strong_IC, vk, inputs, pf))
+             for what, inputs, pf in (("input + 1", [(primary[0] + 1) % rr] + primary[1:], proof),
+                                      ("tampered proof", primary, tampered),
+                                      ("truncated input", primary[:-1], proof))}
+    t1 = time.perf_counter()
     if not system.verifier_strong_IC(vk, primary, proof):
         raise AssertionError(f"{hc.name}: {system.__name__} rejects the card's proof")
-    secs = time.perf_counter() - t0
-    for what, inputs, pf in (("input + 1", [(primary[0] + 1) % rr] + primary[1:], proof),
-                             ("tampered proof", primary, tampered),
-                             ("truncated input", primary[:-1], proof)):
-        if system.verifier_strong_IC(vk, inputs, pf):
+    secs = time.perf_counter() - t1
+    for what, accepted in wrong.items():
+        if accepted.result():
             raise AssertionError(f"{hc.name}: {system.__name__} accepts a proof with {what}")
     return {"verify": secs, "verdicts": time.perf_counter() - t0}
 
@@ -1526,7 +1600,8 @@ def gm17_phase(model, hc, n: int, seed: int, ex, pool):
 
     t0 = time.perf_counter()
     pk, vk, chk = kp.pk, kp.vk, random.Random(seed)
-    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk)
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk,
+                                 pool)
                for key, values, coeff, comb in (
                    ("A_query", At, gamma, combG), ("B_query", At, 1, combH),
                    ("C_query_1", vq[l + 1 :], gamma, combG), ("C_query_2", At, 2 * g2z, combG),
@@ -1554,11 +1629,11 @@ def gm17_phase(model, hc, n: int, seed: int, ex, pool):
     if (proof.A, proof.B, proof.C) != (combG.mul(a), hc.g2.mul(a, H), combG.mul(c)):
         raise AssertionError(f"{hc.name} gm17 proof at d + 1 = {n} differs from the host's scalars")
     t_expected = time.perf_counter() - t0
-    wm = check_sap_witness_map(model, sap, t, d1, d2)
+    wm = check_sap_witness_map(model, sap, t, d1, d2, pool)
     m_sap = len(At) - 1
     del sap, At, Ct, vq
     verdicts = check_verdicts(hc, gm17, vk, primary, proof,
-                              gm17.Proof(hc.g1.add(proof.A, hc.g1_gen), proof.B, proof.C))
+                              gm17.Proof(hc.g1.add(proof.A, hc.g1_gen), proof.B, proof.C), pool)
     emit("gm17", curve=hc.name, d=n - 1, sap_domain=[kind, sap_n], sap_variables=m_sap,
          queries_checked=checked, proof_sha256=proof_sha256(model, (proof.A, proof.B, proof.C)),
          proof_equal=True, verifier={"accepts": True, "rejects": ["input + 1", "tampered A",
@@ -1612,7 +1687,8 @@ def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
     # K / beta: rows 0..m, row m + 1 skipped, then the three Z rows (pghr13.py:137-148)
     K = [(rA * a + rB * b + rC * c) % rr for a, b, c in zip(At, Bt, Ct)]
     K += [rX * Z % rr for rX in (rA, rB, rC)]
-    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk)
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk,
+                                 pool)
                for key, values, coeff, comb in (
                    ("A_query_g", A0, rA, combG), ("A_query_h", A0, rA * alA, combG),
                    ("B_query_g", Bz, rB, combH), ("B_query_h", Bz, rB * alB, combG),
@@ -1646,11 +1722,11 @@ def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
         raise AssertionError(f"{hc.name} pghr13 proof at d + 1 = {n} differs from the host's scalars")
     t_expected = time.perf_counter() - t0
     wm = check_witness_map(model, cs, ex, qap_n, t, Z, {"A": A_t, "B": B_t, "C": C_t},
-                           [(d1, d2, d3)])
+                           [(d1, d2, d3)], pool)
     del At, Bt, Ct
     tampered = pghr13.Proof(**{**vars(proof), "g_A": (hc.g1.add(proof.g_A[0], hc.g1_gen),
                                                       proof.g_A[1])})
-    verdicts = check_verdicts(hc, pghr13, vk, primary, proof, tampered)
+    verdicts = check_verdicts(hc, pghr13, vk, primary, proof, tampered, pool)
     points = (*proof.g_A, *proof.g_B, *proof.g_C, proof.g_H, proof.g_K)
     emit("pghr13", curve=hc.name, d=n - 1, qap_domain=qap_n, m=m, queries_checked=checked,
          proof_sha256=proof_sha256(model, points), proof_equal=True,
@@ -1759,7 +1835,7 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
     rng = random.Random(args.seed)
-    done = set()  # the (kernel, shape) pairs compared on this curve
+    done = {}  # (kernel, shape) -> its row, for the shapes compared on this curve
     at_shapes = lambda lanes, phase: check_kernels_at_path_shapes(
         model, g1_strip, g2_strip, rng, lanes, errs, done, phase)
     at_new_shapes = lambda lanes, phase: check_kernels_at_new_shapes(
@@ -1785,7 +1861,8 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     kg_report = at_shapes(shape_picks(kg_lanes), "kernels_at_keygen_shapes")
     torch.cuda.empty_cache()
 
-    g16_launches, g16_lanes = groth16(model, hc, workdir, args.keygen[curve], args.seed, gen, keys)
+    g16_launches, g16_lanes = groth16(model, hc, workdir, args.keygen[curve], args.seed, gen, keys,
+                                      pool)
     ex = gen.example
     del gen, keys
     torch.cuda.empty_cache()
