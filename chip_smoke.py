@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--sizes4 1000,1048576,1572864]
                           [--sizes6 24576,32768,819200]
                           [--keygen4 1048576] [--keygen6 32768] [--bacs-gates 65536]
+                          [--tbcs4 130048,1024,32,1024] [--tbcs6 16128,256,8,256]
                           [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
@@ -65,7 +66,20 @@ counts, and at the generator's where no earlier check of the curve
 compared them.  On MNT4753 the ``bacs`` phase proves a circuit of
 ``--bacs-gates`` gates drawn from the seed and holds its keys and proof to
 PGHR13's on the circuit's R1CS, and the kernels are compared at its
-generator's and prover's new lane counts.
+generator's and prover's new lane counts.  Last, on each curve, the
+``tbcs`` phase: the TBCS ppzkSNARK (the USCS ppzkSNARK on the circuit's
+USCS -> SSP lowering) on a circuit drawn from the seed with every gate
+type and all outputs false, sized so its USCS fills a radix-2 domain
+(``--tbcs4``: 130048 gates, 1024 inputs of which 32 primary and 1024
+outputs, 2^18 constraints and 2^17 variables on MNT4753; ``--tbcs6``:
+16128 gates, 256 inputs, 8 primary, 256 outputs, 2^15 constraints on
+MNT6753): the generator and the prover with their launch counts, phase
+times and peak memory; the four query families and the verification key
+against exact host multiplication (the SSP at t by this script's own
+Lagrange basis); the proof against the host's scalars with no MSM; the
+witness map with the prover's d by its identity at t; the verdicts (a
+flipped primary bit); and the kernels at the prove's lane counts and at
+the generator's new ones.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -110,15 +124,17 @@ from snark_challenge_prover_tpu_torch.ops.fft import (  # noqa: E402
     get_domain_of_min_size, get_evaluation_domain)
 from snark_challenge_prover_tpu_torch.ops.field import canonical_words  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems import (  # noqa: E402
-    bacs_ppzksnark, bg, gm17, groth16_full, pghr13)
+    bacs_ppzksnark, bg, gm17, groth16_full, pghr13, tbcs_ppzksnark)
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
 from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import (  # noqa: E402
     KCVector, kc_multi_exp_fused)
 from snark_challenge_prover_tpu_torch.reductions import bacs_to_r1cs, r1cs_to_sap  # noqa: E402
+from snark_challenge_prover_tpu_torch.reductions import uscs_to_ssp as ssp  # noqa: E402
 from snark_challenge_prover_tpu_torch.reductions import r1cs_to_qap as qap  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.bacs import BACSCircuit, BACSGate  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.r1cs import LinearCombination  # noqa: E402
+from snark_challenge_prover_tpu_torch.relations.tbcs import TBCSCircuit, TBCSGate  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.bigint import ints_to_words, words_to_ints  # noqa: E402
 
@@ -1498,28 +1514,37 @@ def sap_at_t(model, hc, cs, primary, auxiliary, t: int, pool) -> dict:
             "A": sum(u * v for u, v in zip(L, aA)) % r, "C": sum(u * v for u, v in zip(L, aC)) % r}
 
 
+def check_square_witness_map(model, what: str, run, n: int, top: int, rhs: int, t: int, z: int,
+                             pool) -> dict:
+    """A witness map on the card: ``run()`` (timed) gives H's n + 1
+    Montgomery coefficients, whose top one must be ``top`` and whose value
+    at t times Z(t) must be ``rhs``, by exact integers.  Returns seconds."""
+    Fr, p = model.Fr, model.Fr.p
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H = run()
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coeffs = words_to_ints(Fr.to_canonical(H).cpu().numpy())
+    if len(coeffs) != n + 1 or coeffs[n] != top % p:
+        raise AssertionError(f"{model.name}: the {what}'s top coefficient is not {top % p}")
+    if pool_horner(pool, coeffs, t, p) * z % p != rhs % p:
+        raise AssertionError(f"{model.name}: {what}: H(t) Z(t) differs from its identity at t")
+    return {"device": t_dev, "identity_check": time.perf_counter() - t0}
+
+
 def check_sap_witness_map(model, sap: dict, t: int, d1: int, d2: int, pool) -> dict:
     """The SAP witness map on the card for this script's own A and C on the
     domain and the prover's d1, d2: H's top coefficient is d1^2 (Z's is 1)
     and (A(t) + d1 Z(t))^2 - (C(t) + d2 Z(t)) = H(t) Z(t).  Returns seconds."""
-    Fr, p, n, z = model.Fr, model.Fr.p, sap["n"], sap["Zt"]
+    Fr, n, z = model.Fr, sap["n"], sap["Zt"]
     words = Fr.from_canonical(canonical_words(Fr, sap["aA"] + sap["aC"]))
     ca, cc = words[:, :n].contiguous(), words[:, n:].contiguous()
     del words
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    H = r1cs_to_sap.witness_map_device(model, ca, cc, d1, d2)
-    torch.cuda.synchronize()
-    t_dev = time.perf_counter() - t0
-    del ca, cc
-    t0 = time.perf_counter()
-    coeffs = words_to_ints(Fr.to_canonical(H).cpu().numpy())
-    if len(coeffs) != n + 1 or coeffs[n] != d1 * d1 % p:
-        raise AssertionError(f"{model.name}: the SAP witness map's top coefficient is not d1^2")
-    if pool_horner(pool, coeffs, t, p) * z % p != ((sap["A"] + d1 * z) ** 2
-                                                   - (sap["C"] + d2 * z)) % p:
-        raise AssertionError(f"{model.name}: SAP witness map: H(t) Z(t) != A'(t)^2 - C'(t)")
-    return {"device": t_dev, "identity_check": time.perf_counter() - t0}
+    return check_square_witness_map(
+        model, "SAP witness map", lambda: r1cs_to_sap.witness_map_device(model, ca, cc, d1, d2), n,
+        d1 * d1, (sap["A"] + d1 * z) ** 2 - (sap["C"] + d2 * z), t, z, pool)
 
 
 def verdict(args) -> bool:
@@ -1527,15 +1552,18 @@ def verdict(args) -> bool:
     return verifier(vk, inputs, proof)
 
 
-def check_verdicts(hc, system, vk, primary, proof, tampered, pool) -> dict:
-    """``verifier_strong_IC`` accepts the proof and rejects a wrong input, a
-    tampered proof and a truncated input; the three rejections run on
-    ``pool`` while this process times the acceptance.  Returns the
-    acceptance's seconds and those of all four verdicts."""
+def check_verdicts(hc, system, vk, primary, proof, tampered, pool, wrong_input=None) -> dict:
+    """``verifier_strong_IC`` accepts the proof and rejects a wrong input
+    (``wrong_input``, by default the first input plus 1), a tampered proof
+    and a truncated input; the three rejections run on ``pool`` while this
+    process times the acceptance.  Returns the acceptance's seconds and
+    those of all four verdicts."""
     rr = hc.fr_spec.p
+    if wrong_input is None:
+        wrong_input = [(primary[0] + 1) % rr] + primary[1:]
     t0 = time.perf_counter()
     wrong = {what: pool.submit(verdict, (system.verifier_strong_IC, vk, inputs, pf))
-             for what, inputs, pf in (("input + 1", [(primary[0] + 1) % rr] + primary[1:], proof),
+             for what, inputs, pf in (("wrong input", wrong_input, proof),
                                       ("tampered proof", primary, tampered),
                                       ("truncated input", primary[:-1], proof))}
     t1 = time.perf_counter()
@@ -1807,6 +1835,166 @@ def bacs_phase(model, hc, num_gates: int, seed: int):
     return {"generator": kg_lanes, "prover": lanes}
 
 
+def tbcs_circuit(num_gates: int, num_inputs: int, num_primary: int, num_outputs: int, seed: int):
+    """A satisfiable TBCS circuit drawn from the seed: random input bits;
+    the first 16 gates take the 16 types in a shuffled order with wire 0
+    (TRUE) on the left, the rest random types over any earlier wires (0
+    included); ``num_outputs`` of the rest, drawn at random, are circuit
+    outputs, each given the complement of its drawn type where that type
+    evaluates to true, so every output is false.  Returns (circuit, primary bits,
+    auxiliary bits)."""
+    rng = random.Random(seed)
+    bits = [rng.randrange(2) for _ in range(num_inputs)]
+    types = list(range(16))
+    rng.shuffle(types)
+    outputs = set(rng.sample(range(16, num_gates), num_outputs))
+    circuit = TBCSCircuit(num_primary, num_inputs - num_primary)
+    wires = list(bits)
+    for j in range(num_gates):
+        n = len(wires)
+        gate = TBCSGate(0 if j < 16 else rng.randrange(n + 1), rng.randrange(n + 1),
+                        types[j] if j < 16 else rng.randrange(16), n + 1, j in outputs)
+        value = gate.evaluate(wires)
+        if gate.is_circuit_output and value:
+            gate.type ^= 15
+            value = False
+        circuit.add_gate(gate)
+        wires.append(value)
+    return circuit, bits[:num_primary], bits[num_primary:]
+
+
+def ssp_at(model, hc, cs, w, t: int, pool) -> dict:
+    """The USCS -> SSP reduction of ``cs`` at t by exact integers, from this
+    script's own Lagrange basis over the SSP domain's points
+    (uscs_to_ssp.tcc:57-136): V_i(t) = sum over the rows j where variable i
+    appears of L_j(t) V_{j,i}, V_0 gaining L_j(t) at each dummy row j >=
+    num_constraints (1^2 = 1); the rows' values on the assignment ``w`` (w[0]
+    the constant 1) and V(t) = sum_i w_i V_i(t).  Returns Z(t), V_i(t) for
+    i <= m, the values on the domain and V(t)."""
+    r = model.Fr.p
+    domain = get_domain_of_min_size(model.Fr, max(1, cs.num_constraints))
+    kind, n = type(domain).__name__, domain.n
+    z, L = lagrange_at(hc.fr_spec, kind, n, t, pool)
+    Vt, aV = [0] * (cs.num_variables + 1), [1] * n
+    for j, (u, lc) in enumerate(zip(L, cs.constraints)):
+        val = 0
+        for idx, coeff in lc.terms:
+            Vt[idx] += u * coeff
+            val += coeff * w[idx]
+        aV[j] = val % r
+    Vt[0] += sum(L[cs.num_constraints :])
+    Vt = [v % r for v in Vt]
+    return {"kind": kind, "n": n, "Zt": z, "Vt": Vt, "aV": aV,
+            "V": sum(u * v for u, v in zip(L, aV)) % r}
+
+
+def check_ssp_witness_map(model, at: dict, t: int, d: int, pool) -> dict:
+    """The SSP witness map on the card for this script's own V on the domain
+    and the prover's d: H's top coefficient is d^2 (Z's is 1) and
+    (V(t) + d Z(t))^2 - 1 = H(t) Z(t).  Returns seconds."""
+    Fr, z = model.Fr, at["Zt"]
+    cv = Fr.from_canonical(canonical_words(Fr, at["aV"]))
+    return check_square_witness_map(
+        model, "SSP witness map", lambda: ssp.witness_map_device(model, cv, d), at["n"], d * d,
+        (at["V"] + d * z) ** 2 - 1, t, z, pool)
+
+
+def tbcs_phase(model, hc, sizes, seed: int, pool):
+    """The TBCS ppzkSNARK, which is the USCS ppzkSNARK on the circuit's
+    lowering, on a circuit drawn from the seed (``tbcs_circuit``; ``sizes``
+    = gates, inputs, primary inputs, outputs): ``tbcs_ppzksnark.generator``
+    and ``prover`` (from ``--seed`` and ``--seed`` + 1), each with the launch
+    counts set to 0 just before and read just after; every query family and
+    the verification key against exact multiplication of the scalars
+    replayed on the host (the SSP at t by ``ssp_at``); the proof against the
+    host's scalars, with no MSM (uscs_ppzksnark.py's docstring); the SSP
+    witness map with the prover's d; the verdicts.  Returns the prover's
+    launch and lane counts and the generator's lane counts."""
+    rr = model.Fr.p
+    num_gates, num_inputs, num_primary, num_outputs = sizes
+    t0 = time.perf_counter()
+    circuit, primary, aux = tbcs_circuit(num_gates, num_inputs, num_primary, num_outputs, seed)
+    wires = circuit.get_all_wires(primary, aux)
+    if any(wires[g.output - 1] for g in circuit.gates if g.is_circuit_output):
+        raise AssertionError("the drawn circuit has a true output")
+    if {g.type for g in circuit.gates} != set(range(16)) or \
+            not any(0 in (g.left_wire, g.right_wire) for g in circuit.gates):
+        raise AssertionError("the drawn circuit misses a gate type or the constant wire")
+    t_draw = time.perf_counter() - t0
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_gen, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "tbcs keygen",
+        lambda: tbcs_ppzksnark.generator(model, circuit, random.Random(seed), kg_prof))
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "tbcs prove",
+        lambda: tbcs_ppzksnark.prover(model, kp.pk, primary, aux, random.Random(seed + 1), prof))
+
+    # the generator's draws (t, alpha, tilde), the SSP at t, the prover's d
+    t0 = time.perf_counter()
+    pk, vk = kp.pk.uscs_pk, kp.vk
+    cs = pk.constraint_system
+    if cs.num_constraints != 2 * num_gates + num_inputs + num_outputs:
+        raise AssertionError(f"{hc.name} tbcs: {cs.num_constraints} USCS constraints")
+    rng = random.Random(seed)
+    t, alpha, tilde = (rng.randrange(1, rr) for _ in range(3))
+    d = random.Random(seed + 1).randrange(rr)
+    w = [1] + [int(b) for b in wires]
+    at = ssp_at(model, hc, cs, w, t, pool)
+    kind, n, Z, Vt, l, m = at["kind"], at["n"], at["Zt"], at["Vt"], num_primary, cs.num_variables
+    table = Vt + [Z]
+    combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
+    t_replay = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    chk = random.Random(seed)
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk, pool)
+               for key, values, coeff, comb in (
+                   ("V_g1_query", table[l + 1 :], 1, combG),
+                   ("alpha_V_g1_query", table[l + 1 :], alpha, combG),
+                   ("H_g1_query", Powers(t, n + 1, rr), 1, combG),
+                   ("V_g2_query", table, 1, combH))}
+    H2 = hc.g2_gen
+    singles = ((vk.tilde_g2, hc.g2.mul(tilde, H2)), (vk.alpha_tilde_g2, hc.g2.mul(alpha * tilde % rr, H2)),
+               (vk.Z_g2, hc.g2.mul(Z, H2)), (vk.encoded_IC_base, combG.mul(Vt[0])),
+               (vk.encoded_IC_values, [combG.mul(v) for v in Vt[1 : l + 1]]))
+    if any(got != want for got, want in singles):
+        raise AssertionError(f"{hc.name} tbcs: the verification key differs")
+    t_checks = time.perf_counter() - t0
+
+    # V_g1 = (V_rest(t) + d Z) G, alpha times it, H(t) G, (V(t) + d Z) H
+    t0 = time.perf_counter()
+    V_rest = sum(wi * v for wi, v in zip(w[l + 1 :], Vt[l + 1 :])) % rr
+    vd = (at["V"] + d * Z) % rr
+    h_t = (vd * vd - 1) * pow(Z, -1, rr) % rr
+    want = tbcs_ppzksnark.Proof(V_g1=combG.mul((V_rest + d * Z) % rr),
+                                alpha_V_g1=combG.mul(alpha * (V_rest + d * Z) % rr),
+                                H_g1=combG.mul(h_t), V_g2=hc.g2.mul(vd, H2))
+    if proof != want:
+        raise AssertionError(f"{hc.name} tbcs proof at {num_gates} gates differs from the host's "
+                             "scalars")
+    t_expected = time.perf_counter() - t0
+    wm = check_ssp_witness_map(model, at, t, d, pool)
+    del at, table
+    tampered = tbcs_ppzksnark.Proof(**{**vars(proof), "V_g1": hc.g1.add(proof.V_g1, hc.g1_gen)})
+    verdicts = check_verdicts(hc, tbcs_ppzksnark, vk, primary, proof, tampered, pool,
+                              wrong_input=[1 - primary[0]] + primary[1:])
+    points = (proof.V_g1, proof.alpha_V_g1, proof.H_g1, proof.V_g2)
+    emit("tbcs", curve=hc.name, gates=num_gates, inputs=num_inputs, primary_inputs=num_primary,
+         outputs=num_outputs, constraints=cs.num_constraints, ssp_domain=[kind, n], m=m,
+         queries_checked=checked, proof_sha256=proof_sha256(model, points), proof_equal=True,
+         verifier={"accepts": True, "rejects": ["flipped primary bit", "tampered V_g1",
+                                                "truncated input"]},
+         witness_map={"top": "d^2", "identity_at_t": True},
+         seconds={"draw_circuit": t_draw, "generate": t_gen, "keygen_phases": dict(kg_prof.cumulative),
+                  "prove": t_prove, "prove_phases": dict(prof.cumulative), **verdicts,
+                  "witness_map_check": wm},
+         host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    return launches, lanes, kg_lanes
+
+
 def largest_and_commonest(name: str, seen: dict) -> set:
     """The largest shape of ``seen`` ({shape: launches}; a doubling's (lanes,
     k) by lanes times k) and the one launched most."""
@@ -1828,9 +2016,10 @@ def shape_picks(lanes: dict) -> dict:
 
 def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     """All phases of one curve.  Returns the launch counts of its largest
-    prove and the kernels' numbers at that prove's lane counts, then the
-    same for its key generation and for its blinded Groth16, GM17 and PGHR13
-    proves."""
+    prove, the kernels' numbers at that prove's lane counts, and by path
+    ("keygen", "groth16", "gm17", "pghr13" and, unless ``--tbcs*`` is 0,
+    "tbcs") the same for its key generation and its blinded Groth16, GM17,
+    PGHR13 and TBCS proves."""
     model = MODELS[curve].get("cuda")
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
@@ -1869,21 +2058,29 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     g16_report = at_shapes(shape_picks(g16_lanes), "kernels_at_groth16_shapes")
     torch.cuda.empty_cache()
 
-    # GM17 and PGHR13 on the key generation's example, then BACS; the kernels
-    # also at their generators' and BACS's shapes that are new on this curve
-    more = []
+    # GM17 and PGHR13 on the key generation's example, then BACS, then TBCS;
+    # the kernels also at their generators' and BACS's shapes that are new on
+    # this curve
+    paths = {"keygen": (kg_launches, kg_report), "groth16": (g16_launches, g16_report)}
     for name, phase in (("gm17", gm17_phase), ("pghr13", pghr13_phase)):
         path_launches, path_lanes, gen_lanes = phase(model, hc, args.keygen[curve], args.seed, ex,
                                                      pool)
         torch.cuda.empty_cache()
-        more.append((path_launches, at_shapes(shape_picks(path_lanes), f"kernels_at_{name}_shapes")))
+        paths[name] = (path_launches, at_shapes(shape_picks(path_lanes), f"kernels_at_{name}_shapes"))
         at_new_shapes(gen_lanes, f"kernels_at_{name}_generator_shapes")
         torch.cuda.empty_cache()
     if curve == "MNT4753" and args.bacs_gates:
         for what, lanes in bacs_phase(model, hc, args.bacs_gates, args.seed).items():
             torch.cuda.empty_cache()
             at_new_shapes(lanes, f"kernels_at_bacs_{what}_shapes")
-    return (launches, report, (kg_launches, kg_report), (g16_launches, g16_report), *more)
+    if args.tbcs[curve]:
+        path_launches, path_lanes, gen_lanes = tbcs_phase(model, hc, args.tbcs[curve], args.seed,
+                                                          pool)
+        torch.cuda.empty_cache()
+        paths["tbcs"] = (path_launches, at_shapes(shape_picks(path_lanes), "kernels_at_tbcs_shapes"))
+        at_new_shapes(gen_lanes, "kernels_at_tbcs_generator_shapes")
+        torch.cuda.empty_cache()
+    return launches, report, paths
 
 
 def main(argv=None) -> int:
@@ -1906,6 +2103,13 @@ def main(argv=None) -> int:
                          "reference's default is 2^15)")
     ap.add_argument("--bacs-gates", type=int, default=1 << 16,
                     help="gates of the BACS circuit proved on MNT4753 (0: no bacs phase)")
+    ap.add_argument("--tbcs4", default="130048,1024,32,1024",
+                    help="gates, inputs, primary inputs and outputs of the TBCS circuit proved "
+                         "on MNT4753 (2 gates + inputs + outputs USCS constraints: 2^18 by "
+                         "default; 0: no tbcs phase)")
+    ap.add_argument("--tbcs6", default="16128,256,8,256",
+                    help="the same on MNT6753 (2^15 constraints by default, its scalar "
+                         "field's largest radix-2 domain; 0: no tbcs phase)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
@@ -1920,6 +2124,16 @@ def main(argv=None) -> int:
     args.keygen = {"MNT4753": args.keygen4, "MNT6753": args.keygen6}
     if any(n < 8 or n & (n - 1) for n in args.keygen.values()):
         raise SystemExit("key generation needs d + 1 a power of two, at least 8")
+    args.tbcs = {"MNT4753": args.tbcs4, "MNT6753": args.tbcs6}
+    for curve, spec in args.tbcs.items():
+        gips = tuple(int(v) for v in spec.split(","))  # gates, inputs, primary, outputs
+        if gips == (0,):
+            args.tbcs[curve] = None
+        elif len(gips) != 4 or not (0 < gips[2] <= gips[1] and 0 < gips[3] <= gips[0] - 16):
+            raise SystemExit("--tbcs4/--tbcs6 take 0 or gates, inputs, primary inputs (1 to "
+                             "inputs) and outputs (1 to gates - 16)")
+        else:
+            args.tbcs[curve] = gips
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1948,10 +2162,10 @@ def main(argv=None) -> int:
 
     # one entry per kernel: its numbers from the first curve whose path runs it,
     # and under "also" those of a later curve that runs it with other moduli and lanes;
-    # under "keygen", "groth16", "gm17" and "pghr13" its numbers on each curve's key
-    # generation and on its blinded Groth16, GM17 and PGHR13 proves
+    # under "keygen", "groth16", "gm17", "pghr13" and "tbcs" its numbers on each
+    # curve's key generation and on its blinded Groth16, GM17, PGHR13 and TBCS proves
     kernels = {}
-    for curve, (launches, report, kg, g16, gm, pg) in results.items():
+    for curve, (launches, report, paths) in results.items():
         for name, r in report.items():
             entry = {"curve": curve, "launches": launches[name], **r}
             if name in kernels:
@@ -1961,11 +2175,11 @@ def main(argv=None) -> int:
                 kernels[name] = {"name": name, "route": "cuda", "source": source,
                                  "replaces": replaces, "max_abs_err": errs[name],
                                  "library_ms": None, **entry}
-            for key, (path_launches, path_report) in (("keygen", kg), ("groth16", g16),
-                                                      ("gm17", gm), ("pghr13", pg)):
+            for key, (path_launches, path_report) in paths.items():
+                size = ({"gates": args.tbcs[curve][0]} if key == "tbcs"
+                        else {"d_plus_1": args.keygen[curve]})
                 kernels[name].setdefault(key, []).append(
-                    {"curve": curve, "d_plus_1": args.keygen[curve],
-                     "launches": path_launches[name], **path_report[name]})
+                    {"curve": curve, **size, "launches": path_launches[name], **path_report[name]})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,12 @@ import torch
 
 from .io.serialization import Groth16Input, Groth16Params
 from .ops.limbs import planes16_to_words, to_planes16
-from .proof_systems import bacs_ppzksnark, gm17, pghr13
+from .proof_systems import bacs_ppzksnark, gm17, pghr13, tbcs_ppzksnark, uscs_ppzksnark
 from .proof_systems.groth16_full import Proof, ProvingKey, VerificationKey
 from .relations.bacs import BACSCircuit, BACSGate
 from .relations.r1cs import LinearCombination, R1CSConstraint, R1CSConstraintSystem
+from .relations.tbcs import TBCSCircuit, TBCSGate
+from .relations.uscs import USCSConstraintSystem
 
 
 def _words(planes) -> np.ndarray:
@@ -150,3 +152,48 @@ def bacs_proving_key_from_jax(ref, device) -> bacs_ppzksnark.ProvingKey:
     -> the port's."""
     return bacs_ppzksnark.ProvingKey(circuit=bacs_circuit_from_reference(ref.circuit),
                                      r1cs_pk=pghr13_proving_key_from_jax(ref.r1cs_pk, device))
+
+
+def uscs_from_reference(ref) -> USCSConstraintSystem:
+    """The JAX package's USCS -> the port's (the same terms)."""
+    cs = USCSConstraintSystem(ref.p, ref.primary_input_size, ref.auxiliary_input_size)
+    for lc in ref.constraints:
+        cs.add_constraint(LinearCombination(lc.terms))
+    return cs
+
+
+def tbcs_circuit_from_reference(ref) -> TBCSCircuit:
+    """The JAX package's TBCS circuit -> the port's (the same gates)."""
+    circuit = TBCSCircuit(ref.primary_input_size, ref.auxiliary_input_size)
+    for g in ref.gates:
+        circuit.add_gate(TBCSGate(g.left_wire, g.right_wire, g.type, g.output,
+                                  g.is_circuit_output))
+    return circuit
+
+
+def uscs_proving_key_from_jax(ref, device) -> uscs_ppzksnark.ProvingKey:
+    """The JAX package's USCS ``ProvingKey`` -> the port's, its queries as
+    word tensors on ``device``."""
+    queries = {k: _pair(getattr(ref, k), device)
+               for k in ("V_g1_query", "alpha_V_g1_query", "H_g1_query", "V_g2_query")}
+    return uscs_ppzksnark.ProvingKey(curve=ref.curve, **queries,
+                                     constraint_system=uscs_from_reference(ref.constraint_system))
+
+
+def uscs_verification_key_from_jax(ref) -> uscs_ppzksnark.VerificationKey:
+    """Host integers in both packages: a copy."""
+    return uscs_ppzksnark.VerificationKey(
+        curve=ref.curve, tilde_g2=ref.tilde_g2, alpha_tilde_g2=ref.alpha_tilde_g2, Z_g2=ref.Z_g2,
+        encoded_IC_base=ref.encoded_IC_base, encoded_IC_values=list(ref.encoded_IC_values))
+
+
+def uscs_proof_from_jax(ref) -> uscs_ppzksnark.Proof:
+    return uscs_ppzksnark.Proof(V_g1=ref.V_g1, alpha_V_g1=ref.alpha_V_g1, H_g1=ref.H_g1,
+                                V_g2=ref.V_g2)
+
+
+def tbcs_proving_key_from_jax(ref, device) -> tbcs_ppzksnark.ProvingKey:
+    """The JAX package's TBCS ``ProvingKey`` (the circuit and a USCS key)
+    -> the port's."""
+    return tbcs_ppzksnark.ProvingKey(circuit=tbcs_circuit_from_reference(ref.circuit),
+                                     uscs_pk=uscs_proving_key_from_jax(ref.uscs_pk, device))

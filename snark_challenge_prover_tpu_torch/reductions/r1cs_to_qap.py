@@ -100,17 +100,24 @@ def assemble_abc_evaluations(cs: R1CSConstraintSystem, primary, auxiliary, F):
     return aA, aB, aC
 
 
-def quotient_coefficients(F, domain, ca, cb, cc):
+def quotient_coefficients(F, domain, ca, cb, cc, with_a: bool = False):
     """The FFT dance (tcc:243-330, main.cpp:105-163): the evaluations of
     A, B and C on the domain, Montgomery words (24, n) -> the n
     coefficients of H = (A B - C) / Z, computed on the coset, where Z does
-    not vanish.  ``cb`` None: B = A, H = (A^2 - C) / Z (the SAP's)."""
-    a = domain.coset_fft(domain.ifft(ca))
+    not vanish.  ``cb`` None: B = A, H = (A^2 - C) / Z (the SAP's and the
+    SSP's); ``cc`` None: C = 1, which is 1 on the coset too, so it takes no
+    iFFT and coset FFT (the SSP's).  ``with_a``: (H, A's n coefficients),
+    which the caller's zero-knowledge patch reuses."""
+    a_coeffs = domain.ifft(ca)
+    a = domain.coset_fft(a_coeffs)
+    if not with_a:
+        del a_coeffs
     hab = F.sqr(a) if cb is None else F.mul(a, domain.coset_fft(domain.ifft(cb)))
     del a
-    h = F.sub(hab, domain.coset_fft(domain.ifft(cc)))
+    h = F.sub(hab, F.ones(hab.shape[1:]) if cc is None else domain.coset_fft(domain.ifft(cc)))
     del hab
-    return domain.icoset_fft(domain.divide_by_z_on_coset(h))
+    H = domain.icoset_fft(domain.divide_by_z_on_coset(h))
+    return (H, a_coeffs) if with_a else H
 
 
 def witness_map_device(model, ca, cb, cc, d1: int = 0, d2: int = 0, d3: int = 0):

@@ -31,7 +31,10 @@ def test_every_module_is_listed():
                  "reductions.r1cs_to_qap", "relations.r1cs", "relations.examples",
                  "proof_systems.knowledge_commitment", "proof_systems.bg", "io.keys",
                  "reductions.r1cs_to_sap", "proof_systems.gm17", "proof_systems.pghr13",
-                 "relations.bacs", "reductions.bacs_to_r1cs", "proof_systems.bacs_ppzksnark"):
+                 "relations.bacs", "reductions.bacs_to_r1cs", "proof_systems.bacs_ppzksnark",
+                 "relations.uscs", "relations.tbcs", "reductions.tbcs_to_uscs",
+                 "reductions.uscs_to_ssp", "proof_systems.uscs_ppzksnark",
+                 "proof_systems.tbcs_ppzksnark"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
