@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sizes4 1000,1048576,1572864]
+    python3 chip_smoke.py [--sizes4 1000,98304,1048576]
                           [--sizes6 24576,32768,819200]
-                          [--keygen4 1048576] [--keygen6 32768] [--bacs-gates 65536]
+                          [--keygen4 1048576] [--keygen6 32768] [--gm17-4 262144]
+                          [--pghr13-4 65536]
+                          [--adsnark4 1048576,16] [--adsnark6 32768,8]
+                          [--bacs-gates 16384] [--ram4 65536]
                           [--tbcs4 130048,1024,32,1024] [--tbcs6 16128,256,8,256]
                           [--seed 1]
 
@@ -17,9 +20,9 @@ that the host computes with exact integers, independently of the device
 code.  Before each full-size prove the files are read by both readers
 (the numpy one and the device reader that the prover uses on the card),
 timed, and their words held equal.  MNT4753 is proved at d + 1 = 1000 (a
-geometric sequence domain), at the challenge's own 2^20 (radix-2) and at
-2^20 + 2^19 = 1572864 (step radix-2, the domain a circuit of 2^20 to
-1.5 * 2^20 constraints gets); MNT6753 at 2^14 + 2^13 = 24576 (step
+geometric sequence domain), at 2^16 + 2^15 = 98304 (step radix-2, the
+domain a circuit of 2^16 to 1.5 * 2^16 constraints gets) and at the
+challenge's own 2^20 (radix-2); MNT6753 at 2^14 + 2^13 = 24576 (step
 radix-2), at the challenge's own 2^15 (radix-2) and at 25 * 2^15 = 819200
 (mixed radix), the largest domain its scalar field has.  The kernel
 wrappers record the lane counts of each prove's launches (and, for the
@@ -53,20 +56,32 @@ t; ``bg.prover`` with a random d against the host's scalars and its
 verifier; the keys and the proof through ``io.keys``, timed; and every
 kernel compared and timed at the blinded prove's lane counts.
 
-Then, on the key generation's example, the ``gm17`` phase (GM17 on the
-R1CS -> SAP reduction: MNT4753 on a SAP domain of 2^21, MNT6753 of 2^16)
-and the ``pghr13`` phase: the generator and the prover with their launch
-counts, phase times and peak memory; every query family, the single
-points and the verification key against exact host multiplication of the
-scalars replayed from the seed (the SAP or QAP at t by this script's own
-Lagrange basis); the proof against the host's scalars with no MSM; the
-witness map with the prover's zero-knowledge draws by its identity at t;
-the verdicts; and every kernel compared and timed at the prove's lane
-counts, and at the generator's where no earlier check of the curve
-compared them.  On MNT4753 the ``bacs`` phase proves a circuit of
-``--bacs-gates`` gates drawn from the seed and holds its keys and proof to
-PGHR13's on the circuit's R1CS, and the kernels are compared at its
-generator's and prover's new lane counts.  Last, on each curve, the
+Then the ``gm17`` phase (GM17 on the R1CS -> SAP reduction: on MNT4753 on
+an example of its own at ``--gm17-4``, 2^18, a SAP domain of 2^19; on
+MNT6753 on the key generation's example, a SAP domain of 2^16) and the
+``pghr13`` phase (on MNT4753 on an example of its own at ``--pghr13-4``,
+2^16; on MNT6753 on the key generation's), then the ``adsnark`` phase (ADSNARK on an example of
+its own with authenticated inputs: ``--adsnark4`` d + 1 = 2^20 with 16,
+``--adsnark6`` 2^15 with 8; labels, authentication keys and signatures from
+the seed): the generator and the prover with their launch counts, phase
+times and peak memory; every query family, the single points and the
+verification key against exact host multiplication of the scalars
+replayed from the seed (the SAP or QAP at t by this script's own Lagrange
+basis); the proof against the host's scalars with no MSM; the witness map
+with the prover's zero-knowledge draws by its identity at t; the verdicts
+(ADSNARK: both verifiers, and its MACs, Lambdas and ``auth_verify_*``);
+and every kernel compared and timed at the prove's lane counts, and at the
+generator's where no earlier check of the curve compared them.  On MNT4753
+the ``bacs`` phase proves a circuit of ``--bacs-gates`` gates drawn from the
+seed and holds its keys and proof to PGHR13's on the circuit's R1CS, and
+the kernels are compared at its generator's and prover's new lane counts;
+then the ``ram`` phase: the RAM ppzkSNARK on a TinyRAM program (w = k = 16,
+only the circuit's opcodes, loads and stores over a public tape of 16
+words) drawn from the seed, with T steps such that its R1CS fills a QAP
+domain of ``--ram4`` (2^16): the simulation accepting, the filled circuit
+satisfied, the proof against PGHR13's host scalars on its R1CS, the
+witness map's identity, the tape accepted and a changed tape word
+rejected, and the kernels at its shapes.  Last, on each curve, the
 ``tbcs`` phase: the TBCS ppzkSNARK (the USCS ppzkSNARK on the circuit's
 USCS -> SSP lowering) on a circuit drawn from the seed with every gate
 type and all outputs false, sized so its USCS fills a radix-2 domain
@@ -102,7 +117,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import namedtuple
 from concurrent.futures import ProcessPoolExecutor
+from dataclasses import replace
 from itertools import chain
 from pathlib import Path
 
@@ -124,7 +141,7 @@ from snark_challenge_prover_tpu_torch.ops.fft import (  # noqa: E402
     get_domain_of_min_size, get_evaluation_domain)
 from snark_challenge_prover_tpu_torch.ops.field import canonical_words  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems import (  # noqa: E402
-    bacs_ppzksnark, bg, gm17, groth16_full, pghr13, tbcs_ppzksnark)
+    adsnark, bacs_ppzksnark, bg, gm17, groth16_full, pghr13, ram_ppzksnark, tbcs_ppzksnark)
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
 from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import (  # noqa: E402
@@ -132,9 +149,14 @@ from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import 
 from snark_challenge_prover_tpu_torch.reductions import bacs_to_r1cs, r1cs_to_sap  # noqa: E402
 from snark_challenge_prover_tpu_torch.reductions import uscs_to_ssp as ssp  # noqa: E402
 from snark_challenge_prover_tpu_torch.reductions import r1cs_to_qap as qap  # noqa: E402
+from snark_challenge_prover_tpu_torch.reductions.ram_to_r1cs import ram_to_r1cs  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.bacs import BACSCircuit, BACSGate  # noqa: E402
+from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
+    R1CSExample, generate_r1cs_example_with_field_input)
 from snark_challenge_prover_tpu_torch.relations.r1cs import LinearCombination  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.tbcs import TBCSCircuit, TBCSGate  # noqa: E402
+from snark_challenge_prover_tpu_torch.relations.tinyram import (  # noqa: E402
+    Instruction, TinyRAMArchParams, TinyRAMProgram, simulate)
 from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.bigint import ints_to_words, words_to_ints  # noqa: E402
 
@@ -790,6 +812,19 @@ def pool_horner(pool, coeffs, x: int, p: int) -> int:
     return acc
 
 
+def dot_piece(args) -> int:
+    xs, ys, p = args
+    return sum(x * y for x, y in zip(xs, ys)) % p
+
+
+def pool_dot(pool, xs, ys, p: int) -> int:
+    """sum_i xs[i] ys[i] mod p (two lists of one length), in pieces over
+    ``pool``."""
+    if len(xs) != len(ys):
+        raise ValueError(f"pool_dot of {len(xs)} and {len(ys)} values")
+    return sum(pool.map(dot_piece, [(a, b, p) for a, b in zip(pieces(xs), pieces(ys))])) % p
+
+
 def mont_products(args) -> list:
     a, b, rinv, p = args
     return [x * y * rinv % p for x, y in zip(a, b)]
@@ -1020,7 +1055,7 @@ def host_keys(model, hc, ex, seed: int, pool):
     keys = {"w": [1] + ex.primary_input + ex.auxiliary_input, "nin": cs.primary_input_size,
             "t": t, "At": At, "Bt": Bt, "Ct": Ct, "Zt": zt, "Ht": powers,
             "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": rng.randrange(1, r)}
-    keys["at_t"] = qap_at_t(model, keys)
+    keys["at_t"] = qap_at_t(model, keys, pool)
     return keys
 
 
@@ -1178,14 +1213,15 @@ def keygen(model, hc, workdir: Path, n: int, seed: int, pool):
 # --------------------------------------------------------------------------
 # phase: groth16
 # --------------------------------------------------------------------------
-def qap_at_t(model, keys: dict) -> dict:
-    """The witness's QAP polynomials at the key's t by exact integers:
-    X(t) = sum_i w_i X_i(t) for X = A, B, C, and sum_{i > nin} w_i ABC_i(t)."""
+def qap_at_t(model, keys: dict, pool) -> dict:
+    """The witness's QAP polynomials at the key's t by exact integers (the
+    sums on ``pool``): X(t) = sum_i w_i X_i(t) for X = A, B, C, and
+    sum_{i > nin} w_i ABC_i(t) = beta sum w_i A_i(t) + alpha sum w_i B_i(t) +
+    sum w_i C_i(t) over i > nin."""
     rr, w, nin = model.Fr.p, keys["w"], keys["nin"]
-    out = {k: sum(wi * v for wi, v in zip(w, keys[k + "t"])) % rr for k in "ABC"}
-    out["L"] = sum(wi * (keys["beta"] * a + keys["alpha"] * b + c) for wi, a, b, c in
-                   zip(w[nin + 1 :], keys["At"][nin + 1 :], keys["Bt"][nin + 1 :],
-                       keys["Ct"][nin + 1 :])) % rr
+    out = {k: pool_dot(pool, w, keys[k + "t"], rr) for k in "ABC"}
+    tail = {k: pool_dot(pool, w[nin + 1 :], keys[k + "t"][nin + 1 :], rr) for k in "ABC"}
+    out["L"] = (keys["beta"] * tail["A"] + keys["alpha"] * tail["B"] + tail["C"]) % rr
     return out
 
 
@@ -1463,19 +1499,20 @@ def sap_domain(model, cs):
     return type(domain).__name__, domain.n
 
 
-def sap_at_t(model, hc, cs, primary, auxiliary, t: int, pool) -> dict:
+def sap_at_t(model, hc, cs, primary, auxiliary, t: int, domain, pool) -> dict:
     """The R1CS -> SAP reduction of ``cs`` at t by exact integers, from the
     SAP's rows and this script's own Lagrange basis over the SAP domain's
     points (r1cs_to_sap.tcc:75-180): a non-square constraint a b = c gives
     the rows (a + b)^2 = 4 c + x' and (a - b)^2 = x', x' a new variable;
     a square one (a a = c) one row; then x_0^2 = x_0 and, for each input i
     with a new x''_i, (x_i + x_0)^2 = 4 x_i + x''_i and (x_i - x_0)^2 =
-    x''_i.  Returns Z(t), A_i(t), C_i(t) for the SAP's variables, the rows'
-    A and C on the witness (the domain's values) and A(t), C(t)."""
+    x''_i, over ``domain`` (``sap_domain``'s (kind, size)).  Returns Z(t),
+    A_i(t), C_i(t) for the SAP's variables, the rows' A and C on the witness
+    (the domain's values) and A(t), C(t)."""
     r, fr = model.Fr.p, hc.fr_spec
     nvar, nin = cs.num_variables, cs.primary_input_size
     nonsq = sum(not c.is_square for c in cs.constraints)
-    kind, n = sap_domain(model, cs)
+    kind, n = domain
     z, L = lagrange_at(fr, kind, n, t, pool)
     m = nvar + nonsq + nin
     At, Ct, aA, aC = [0] * (m + 1), [0] * (m + 1), [0] * n, [0] * n
@@ -1511,7 +1548,7 @@ def sap_at_t(model, hc, cs, primary, auxiliary, t: int, pool) -> dict:
         row(k + 2 * i, [(i, 1), (0, -1)], [(xpp, 1)], xi - 1, (xi - 1) ** 2)
     return {"n": n, "kind": kind, "Zt": z, "At": [v % r for v in At],
             "Ct": [v % r for v in Ct], "aA": aA, "aC": aC, "w": [1] + w,
-            "A": sum(u * v for u, v in zip(L, aA)) % r, "C": sum(u * v for u, v in zip(L, aC)) % r}
+            "A": pool_dot(pool, L, aA, r), "C": pool_dot(pool, L, aC, r)}
 
 
 def check_square_witness_map(model, what: str, run, n: int, top: int, rhs: int, t: int, z: int,
@@ -1591,7 +1628,8 @@ def proof_sha256(model, points) -> str:
 
 
 def gm17_phase(model, hc, n: int, seed: int, ex, pool):
-    """GM17 at the key generation's size, on its example: ``gm17.generator``
+    """GM17 at d + 1 = n on the example ``ex`` (the key generation's on
+    MNT6753, one of its own on MNT4753, ``--gm17-4``): ``gm17.generator``
     and ``gm17.prover`` (both drawing from ``--seed``), each with the launch
     counts set to 0 just before and read just after; every query family, the
     single points and the verification key against exact multiplication of
@@ -1618,7 +1656,7 @@ def gm17_phase(model, hc, n: int, seed: int, ex, pool):
     alpha, beta, gamma, g_s, h_s = (rng.randrange(1, rr) for _ in range(5))
     draws = random.Random(seed)
     d1, d2, r = (draws.randrange(rr) for _ in range(3))
-    sap = sap_at_t(model, hc, cs, primary, aux, t, pool)
+    sap = sap_at_t(model, hc, cs, primary, aux, t, (kind, sap_n), pool)
     At, Ct, Z, l = sap["At"], sap["Ct"], sap["Zt"], cs.primary_input_size
     ab, g2z = (alpha + beta) % rr, gamma * gamma * Z % rr
     vq = [(gamma * c + ab * a) % rr for a, c in zip(At, Ct)]
@@ -1676,8 +1714,71 @@ def gm17_phase(model, hc, n: int, seed: int, ex, pool):
     return launches, lanes, kg_lanes
 
 
+def pghr13_host_proof(hc, combG, secrets, draws, qap_t, w, l: int, pool):
+    """PGHR13's proof from the host's scalars, with no MSM (pghr13.py's
+    docstring): for the generator's (alphaA, alphaB, alphaC, rA, rB, beta),
+    the prover's (d1, d2, d3), the QAP at t (Z, [A_i], [B_i], [C_i]) and the
+    assignment ``w`` (w[0] the constant 1, l inputs), the pairs rX (X(t) +
+    d Z) (G or H, and alphaX times it in G1), A without its input rows;
+    H(t) = (A' B' - C') / Z; K = beta (rA A' + rB B' + rC C'); the sums on
+    ``pool``.  Returns the proof and {"A", "B", "C"}: A(t), B(t), C(t)."""
+    rr = hc.fr_spec.p
+    alA, alB, alC, rA, rB, beta = secrets
+    rC = rA * rB % rr
+    d1, d2, d3 = draws
+    Z, At, Bt, Ct = qap_t
+    w = [v % rr for v in w]
+    A_t, B_t, C_t = (pool_dot(pool, w, X, rr) for X in (At, Bt, Ct))
+    Ap, Bp, Cp = A_t + d1 * Z, B_t + d2 * Z, C_t + d3 * Z
+    A0p = Ap - sum(wi * v for wi, v in zip(w[: l + 1], At))
+    g = lambda k: combG.mul(k % rr)
+    proof = pghr13.Proof(
+        g_A=(g(rA * A0p), g(rA * alA * A0p)),
+        g_B=(hc.g2.mul(rB * Bp % rr, hc.g2_gen), g(rB * alB * Bp)),
+        g_C=(g(rC * Cp), g(rC * alC * Cp)), g_H=g((Ap * Bp - Cp) * pow(Z, -1, rr)),
+        g_K=g(beta * (rA * Ap + rB * Bp + rC * Cp)))
+    return proof, {"A": A_t, "B": B_t, "C": C_t}
+
+
+def pghr13_key_checks(model, hc, pk, vk, secrets, qap_t, t: int, qap_n: int, ic_split: bool,
+                      combG, combH, seed: int, pool) -> dict:
+    """PGHR13's (and ADSNARK's) query families and the verification key's
+    points other than the IC / Ain against exact multiplication of the
+    generator's secrets (alphaA, alphaB, alphaC, rA, rB, beta, gamma) and the
+    QAP at t (Z, [A_i], [B_i], [C_i]), with A's input rows zeroed under
+    ``ic_split`` (pghr13.py's quirks: K skips row m + 1).  Raises on a
+    difference; returns check_family's counts by query."""
+    rr = model.Fr.p
+    alA, alB, alC, rA, rB, beta, gamma = secrets
+    rC = rA * rB % rr
+    Z, At, Bt, Ct = qap_t
+    l = pk.constraint_system.primary_input_size
+    Az = ([0] * (l + 1) + At[l + 1 :] if ic_split else At) + [Z]
+    Bz, Cz = Bt + [Z], Ct + [Z]
+    # K / beta: rows 0..m, row m + 1 skipped, then the three Z rows
+    K = [(rA * a + rB * b + rC * c) % rr for a, b, c in zip(At, Bt, Ct)]
+    K += [rX * Z % rr for rX in (rA, rB, rC)]
+    chk = random.Random(seed)
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk,
+                                 pool)
+               for key, values, coeff, comb in (
+                   ("A_query_g", Az, rA, combG), ("A_query_h", Az, rA * alA, combG),
+                   ("B_query_g", Bz, rB, combH), ("B_query_h", Bz, rB * alB, combG),
+                   ("C_query_g", Cz, rC, combG), ("C_query_h", Cz, rC * alC, combG),
+                   ("H_query", Powers(t, qap_n + 1, rr), 1, combG), ("K_query", K, beta, combG))}
+    H2, gb = hc.g2_gen, gamma * beta % rr
+    singles = ((vk.alphaA_g2, hc.g2.mul(alA, H2)), (vk.alphaB_g1, combG.mul(alB)),
+               (vk.alphaC_g2, hc.g2.mul(alC, H2)), (vk.gamma_g2, hc.g2.mul(gamma, H2)),
+               (vk.gamma_beta_g1, combG.mul(gb)), (vk.gamma_beta_g2, hc.g2.mul(gb, H2)),
+               (vk.rC_Z_g2, hc.g2.mul(rC * Z % rr, H2)))
+    if any(got != want for got, want in singles):
+        raise AssertionError(f"{hc.name}: the verification key differs")
+    return checked
+
+
 def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
-    """PGHR13 at the key generation's size, on its example:
+    """PGHR13 at d + 1 = n on the example ``ex`` (the key generation's on
+    MNT6753, one of its own on MNT4753, ``--pghr13-4``):
     ``pghr13.generator`` and ``pghr13.prover`` (both drawing from
     ``--seed``) with the launch counts set to 0 just before and read just
     after; every query family (the K and IC quirks included) and the
@@ -1700,7 +1801,6 @@ def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
     rng = random.Random(seed)
     t = rng.randrange(1, rr)
     alA, alB, alC, rA, rB, beta, gamma = (rng.randrange(1, rr) for _ in range(7))
-    rC = rA * rB % rr
     draws = random.Random(seed)
     d1, d2, d3 = (draws.randrange(rr) for _ in range(3))
     Z, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
@@ -1710,47 +1810,22 @@ def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
     t_replay = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    pk, vk, chk = kp.pk, kp.vk, random.Random(seed)
-    A0, Bz, Cz = [0] * (l + 1) + At[l + 1 :] + [Z], Bt + [Z], Ct + [Z]
-    # K / beta: rows 0..m, row m + 1 skipped, then the three Z rows (pghr13.py:137-148)
-    K = [(rA * a + rB * b + rC * c) % rr for a, b, c in zip(At, Bt, Ct)]
-    K += [rX * Z % rr for rX in (rA, rB, rC)]
-    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, chk,
-                                 pool)
-               for key, values, coeff, comb in (
-                   ("A_query_g", A0, rA, combG), ("A_query_h", A0, rA * alA, combG),
-                   ("B_query_g", Bz, rB, combH), ("B_query_h", Bz, rB * alB, combG),
-                   ("C_query_g", Cz, rC, combG), ("C_query_h", Cz, rC * alC, combG),
-                   ("H_query", Powers(t, qap_n + 1, rr), 1, combG), ("K_query", K, beta, combG))}
-    del A0, Bz, Cz, K
-    G2 = hc.g2_gen
-    singles = ((vk.alphaA_g2, hc.g2.mul(alA, G2)), (vk.alphaB_g1, combG.mul(alB)),
-               (vk.alphaC_g2, hc.g2.mul(alC, G2)), (vk.gamma_g2, hc.g2.mul(gamma, G2)),
-               (vk.gamma_beta_g1, combG.mul(gamma * beta % rr)),
-               (vk.gamma_beta_g2, hc.g2.mul(gamma * beta % rr, G2)),
-               (vk.rC_Z_g2, hc.g2.mul(rC * Z % rr, G2)), (vk.encoded_IC_base, combG.mul(rA * At[0] % rr)),
+    pk, vk = kp.pk, kp.vk
+    checked = pghr13_key_checks(model, hc, pk, vk, (alA, alB, alC, rA, rB, beta, gamma),
+                                (Z, At, Bt, Ct), t, qap_n, True, combG, combH, seed, pool)
+    singles = ((vk.encoded_IC_base, combG.mul(rA * At[0] % rr)),
                (vk.encoded_IC_values, [combG.mul(rA * a % rr) for a in At[1 : l + 1]]))
     if any(got != want for got, want in singles):
-        raise AssertionError(f"{hc.name} pghr13: the verification key differs")
+        raise AssertionError(f"{hc.name} pghr13: the verification key's IC differs")
     t_checks = time.perf_counter() - t0
 
-    # the pairs rX (X(t) + d Z) (G or H, and alphaX times it in G1), A without
-    # its input rows; H(t) = (A' B' - C') / Z; K = beta (rA A' + rB B' + rC C')
     t0 = time.perf_counter()
-    w = [1] + [v % rr for v in primary + aux]
-    A_t, B_t, C_t = (sum(wi * v for wi, v in zip(w, X)) % rr for X in (At, Bt, Ct))
-    Ap, Bp, Cp = A_t + d1 * Z, B_t + d2 * Z, C_t + d3 * Z
-    A0p = Ap - sum(wi * v for wi, v in zip(w[: l + 1], At))
-    g = lambda k: combG.mul(k % rr)
-    want = pghr13.Proof(
-        g_A=(g(rA * A0p), g(rA * alA * A0p)), g_B=(hc.g2.mul(rB * Bp % rr, G2), g(rB * alB * Bp)),
-        g_C=(g(rC * Cp), g(rC * alC * Cp)), g_H=g((Ap * Bp - Cp) * pow(Z, -1, rr)),
-        g_K=g(beta * (rA * Ap + rB * Bp + rC * Cp)))
+    want, at_t = pghr13_host_proof(hc, combG, (alA, alB, alC, rA, rB, beta), (d1, d2, d3),
+                                   (Z, At, Bt, Ct), [1] + primary + aux, l, pool)
     if proof != want:
         raise AssertionError(f"{hc.name} pghr13 proof at d + 1 = {n} differs from the host's scalars")
     t_expected = time.perf_counter() - t0
-    wm = check_witness_map(model, cs, ex, qap_n, t, Z, {"A": A_t, "B": B_t, "C": C_t},
-                           [(d1, d2, d3)], pool)
+    wm = check_witness_map(model, cs, ex, qap_n, t, Z, at_t, [(d1, d2, d3)], pool)
     del At, Bt, Ct
     tampered = pghr13.Proof(**{**vars(proof), "g_A": (hc.g1.add(proof.g_A[0], hc.g1_gen),
                                                       proof.g_A[1])})
@@ -1763,6 +1838,345 @@ def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
          seconds={"generate": t_gen, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
                   "prove_phases": dict(prof.cumulative), **verdicts, "witness_map_check": wm},
          host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    return launches, lanes, kg_lanes
+
+
+# a stand-in for a model where a host-side function reads only its name: it
+# pickles to the host pool, which a model on the card does not
+CurveName = namedtuple("CurveName", "name")
+
+
+def auth_check(args) -> bool:
+    """adsnark.auth_verify_sym or _pub (``which``) on the host pool."""
+    which, name, values, data, key, labels = args
+    return getattr(adsnark, f"auth_verify_{which}")(CurveName(name), values, data, key, labels)
+
+
+def adsnark_verdict(args):
+    """adsnark.verifier_sym or _pub (``which``) on the host pool: (its
+    verdict, its seconds)."""
+    which, name, vk, proof, key, labels, data = args
+    t0 = time.perf_counter()
+    if which == "sym":
+        ok = adsnark.verifier_sym(CurveName(name), vk, proof, key, labels)
+    else:
+        ok = adsnark.verifier_pub(CurveName(name), vk, proof, data, key, labels)
+    return ok, time.perf_counter() - t0
+
+
+def adsnark_phase(model, hc, n: int, num_inputs: int, seed: int, pool):
+    """ADSNARK at d + 1 = n on an example of its own from the seed with
+    ``num_inputs`` authenticated inputs (n - num_inputs - 1 constraints),
+    labels, authentication keys and signatures drawn from the seed:
+    ``adsnark.generator`` and ``adsnark.prover`` (from ``--seed`` and
+    ``--seed`` + 1) with the launch counts set to 0 just before each and read
+    just after; the MACs and Lambdas against lambda_i + i v_i and lambda_i H,
+    ``auth_verify_sym`` / ``_pub`` accepting the values and rejecting a
+    changed one; every query family, rA_i_Z_g1 and the verification key
+    against exact multiplication of the scalars replayed on the host (the QAP
+    at t by ``qap_at``); the proof against the host's scalars with no MSM
+    (adsnark.py's docstring); the QAP witness map with the prover's shifts
+    (d1 + dauth, d2, d3); the verdicts of both verifiers.  Returns the
+    prover's launch and lane counts and the generator's lane counts."""
+    rr = model.Fr.p
+    t0 = time.perf_counter()
+    ex = generate_r1cs_example_with_field_input(rr, n - num_inputs - 1, num_inputs,
+                                                random.Random(seed + 2))
+    cs, primary, aux = ex.constraint_system, ex.primary_input, ex.auxiliary_input
+    t_example = time.perf_counter() - t0
+    qap_n = qap.qap_domain_size(cs, model.Fr)
+    if qap_n != n:
+        raise AssertionError(f"{hc.name} adsnark: a QAP domain of {qap_n}, not {n}")
+    t0 = time.perf_counter()
+    arng = random.Random(seed + 3)
+    labels = [arng.randbytes(16) for _ in range(num_inputs)]
+    keys = adsnark.auth_generator(model, arng)
+    data = adsnark.auth_sign(model, primary, keys.sak, labels, arng)
+    t_auth = time.perf_counter() - t0
+
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_gen, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "adsnark keygen",
+        lambda: adsnark.generator(model, cs, keys.pap, random.Random(seed), kg_prof))
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "adsnark prove",
+        lambda: adsnark.prover(model, kp.pk, primary, aux, data, random.Random(seed + 1), prof))
+
+    # the verdicts on the pool, while this process checks the rest
+    name, vk, sak, pak = hc.name, kp.vk, keys.sak, keys.pak
+    forged = [replace(data[0], sigma=(data[0].sigma[0] + 1, data[0].sigma[1]))] + data[1:]
+    tampered = {"g_A": adsnark.Proof(**{**vars(proof), "g_A": (hc.g1.add(proof.g_A[0], hc.g1_gen),
+                                                                proof.g_A[1])}),
+                "muA": adsnark.Proof(**{**vars(proof), "muA": hc.g1.add(proof.muA, hc.g1_gen)})}
+    wrong_labels = labels[1:] + labels[:1]
+    tasks = {("sym", "accepts"): (vk, proof, sak, labels, None),
+             ("pub", "accepts"): (vk, proof, pak, labels, data),
+             ("sym", "wrong labels"): (vk, proof, sak, wrong_labels, None),
+             ("pub", "wrong labels"): (vk, proof, pak, wrong_labels, data),
+             ("sym", "tampered g_A"): (vk, tampered["g_A"], sak, labels, None),
+             ("pub", "tampered g_A"): (vk, tampered["g_A"], pak, labels, data),
+             ("sym", "tampered muA"): (vk, tampered["muA"], sak, labels, None),
+             ("pub", "tampered muA"): (vk, tampered["muA"], pak, labels, data),
+             ("pub", "forged label signature"): (vk, proof, pak, labels, forged)}
+    t_verdicts = time.perf_counter()
+    futures = {k: pool.submit(adsnark_verdict, (k[0], name, *v)) for k, v in tasks.items()}
+
+    # the authentication layer: mu_i = lambda_i + i v_i, Lambda_i = lambda_i H,
+    # both checks accepting the values (in pieces on the pool) and rejecting one changed
+    t0 = time.perf_counter()
+    lambdas = [adsnark._prf(sak.prf_seed, lb, rr) for lb in labels]
+    combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
+    if [ad.mu for ad in data] != [(lam + sak.i * v) % rr for lam, v in zip(lambdas, primary)] or \
+            [ad.Lambda for ad in data] != pool_muls(pool, combH, lambdas):
+        raise AssertionError(f"{hc.name} adsnark: a MAC or a Lambda differs from the host's")
+    bad = [(primary[0] + 1) % rr]
+    auth = [pool.submit(auth_check, (which, name, part_v, part_d, key, part_l))
+            for which, key in (("sym", sak), ("pub", pak))
+            for part_v, part_d, part_l in zip(pieces(primary), pieces(data), pieces(labels))]
+    auth_bad = [pool.submit(auth_check, (which, name, bad, data[:1], key, labels[:1]))
+                for which, key in (("sym", sak), ("pub", pak))]
+    if not all(f.result() for f in auth) or any(f.result() for f in auth_bad):
+        raise AssertionError(f"{hc.name} adsnark: auth_verify_sym / _pub decide wrongly")
+    t_auth_checks = time.perf_counter() - t0
+
+    # the generator's draws (t, alphaA, alphaB, alphaC, rA, rB, beta, gamma), the
+    # QAP at t, the prover's (d1, d2, d3, dauth)
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    t = rng.randrange(1, rr)
+    alA, alB, alC, rA, rB, beta, gamma = (rng.randrange(1, rr) for _ in range(7))
+    rC = rA * rB % rr
+    draws = random.Random(seed + 1)
+    d1, d2, d3, dauth = (draws.randrange(rr) for _ in range(4))
+    Z, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
+    m, l = cs.num_variables, num_inputs
+    t_replay = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pk = kp.pk
+    checked = pghr13_key_checks(model, hc, pk, vk, (alA, alB, alC, rA, rB, beta, gamma),
+                                (Z, At, Bt, Ct), t, qap_n, False, combG, combH, seed, pool)
+    singles = ((vk.A0, combG.mul(rA * At[0] % rr)),
+               (vk.Ain, [combG.mul(rA * a % rr) for a in At[1 : l + 1]]),
+               (pk.rA_i_Z_g1, combG.mul(rA * Z * sak.i % rr)))
+    if any(got != want for got, want in singles):
+        raise AssertionError(f"{hc.name} adsnark: rA_i_Z_g1, A0 or Ain differs")
+    t_checks = time.perf_counter() - t0
+
+    # the proof by adsnark.py's docstring: with a_in = sum_{i <= l} w_i A_i(t)
+    # and a_aux = A(t) - A_0(t) - a_in, g_A = rA (a_aux + d1 Z), g_Aau = rA (a_in
+    # + dauth Z) (and alphaA times each), B, C, H and K as PGHR13's with A' =
+    # A(t) + (d1 + dauth) Z, muA = rA (dauth i Z + sum_i mu_i A_i(t))
+    t0 = time.perf_counter()
+    w = [1] + [v % rr for v in primary + aux]
+    A_t, B_t, C_t = (pool_dot(pool, w, X, rr) for X in (At, Bt, Ct))
+    a_in = sum(wi * v for wi, v in zip(w[1 : l + 1], At[1 : l + 1])) % rr
+    a_aux, d1a = (A_t - At[0] - a_in) % rr, (d1 + dauth) % rr
+    Ap, Bp, Cp = A_t + d1a * Z, B_t + d2 * Z, C_t + d3 * Z
+    g = lambda k: combG.mul(k % rr)
+    want = adsnark.Proof(
+        g_A=(g(rA * (a_aux + d1 * Z)), g(rA * alA * (a_aux + d1 * Z))),
+        g_B=(hc.g2.mul(rB * Bp % rr, hc.g2_gen), g(rB * alB * Bp)),
+        g_C=(g(rC * Cp), g(rC * alC * Cp)),
+        g_H=g((Ap * Bp - Cp) * pow(Z, -1, rr)), g_K=g(beta * (rA * Ap + rB * Bp + rC * Cp)),
+        g_Aau=(g(rA * (a_in + dauth * Z)), g(rA * alA * (a_in + dauth * Z))),
+        muA=g(rA * (dauth * sak.i * Z + sum(ad.mu * a for ad, a in zip(data, At[1 : l + 1])))))
+    if proof != want:
+        raise AssertionError(f"{hc.name} adsnark proof at d + 1 = {n} differs from the host's "
+                             "scalars")
+    t_expected = time.perf_counter() - t0
+    wm = check_witness_map(model, cs, ex, qap_n, t, Z, {"A": A_t, "B": B_t, "C": C_t},
+                           [(d1a, d2, d3)], pool)
+    del At, Bt, Ct
+
+    verdicts = {k: f.result() for k, f in futures.items()}
+    t_verdicts = time.perf_counter() - t_verdicts
+    for (which, case), (ok, _) in verdicts.items():
+        if ok != (case == "accepts"):
+            raise AssertionError(f"{hc.name}: adsnark verifier_{which} {'rejects' if case == 'accepts' else 'accepts'} "
+                                 f"the card's proof{'' if case == 'accepts' else ' with ' + case}")
+    points = (*proof.g_A, *proof.g_B, *proof.g_C, proof.g_H, proof.g_K, *proof.g_Aau, proof.muA)
+    emit("adsnark", curve=hc.name, d=n - 1, inputs=num_inputs, qap_domain=qap_n, m=m,
+         constraints=cs.num_constraints, queries_checked=checked,
+         proof_sha256=proof_sha256(model, points), proof_equal=True,
+         auth={"mac_and_lambda": True, "sym_pub_accept": True, "reject_changed_value": True},
+         verifier={"accepts": ["sym", "pub"],
+                   "rejects": sorted({case for (_, case) in verdicts if case != "accepts"})},
+         witness_map={"shifts": "d1 + dauth, d2, d3", "identity_at_t": True},
+         seconds={"generate": t_gen, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                  "prove_phases": dict(prof.cumulative),
+                  "verify_sym": verdicts["sym", "accepts"][1],
+                  "verify_pub": verdicts["pub", "accepts"][1], "verdicts": t_verdicts,
+                  "witness_map_check": wm},
+         host_seconds={"example": t_example, "auth_sign": t_auth, "auth_checks": t_auth_checks,
+                       "replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    return launches, lanes, kg_lanes
+
+
+RAM_TAPE_WORDS = 16  # the public tape of the ram phase's program
+# what the ram phase's program draws its body from (CIRCUIT_OPS but the
+# memory operations, the jumps and answer, which it places itself)
+RAM_ALU_OPS = ("mov", "cmov", "add", "sub", "and", "or", "xor", "not", "cmpe", "cmpa", "cmpae")
+
+
+def ram_program(seed: int, w: int = 16, k: int = 16):
+    """A TinyRAM program and tape drawn from the seed, on a (w, k) machine,
+    with only the opcodes of ``CIRCUIT_OPS``: it loads each of the 16 tape
+    words (boot-stored at addresses 0..15) in turn, between random ALU
+    instructions over random registers and immediates, stores to and loads
+    from random addresses, and takes forward jumps (jmp, cjmp, cnjmp) over
+    one instruction; then xors every register into r0, subtracts the
+    result it reached on this tape and answers r0, so it accepts this tape.
+    Returns (program, tape)."""
+    rng = random.Random(seed)
+    ap = TinyRAMArchParams(w, k)
+    tape = [rng.randrange(1 << w) for _ in range(RAM_TAPE_WORDS)]
+    prog = TinyRAMProgram(ap, [])
+    reg = lambda: rng.randrange(k)
+    operand = lambda: (reg(), False) if rng.randrange(2) else (rng.randrange(1 << w), True)
+    for i in range(RAM_TAPE_WORDS):
+        prog.add("loadw", des=reg(), arg2=i)
+        for _ in range(2):
+            a2, imm = operand()
+            prog.add(rng.choice(RAM_ALU_OPS), des=reg(), arg1=reg(), arg2=a2, imm=imm)
+        roll = rng.randrange(4)
+        if roll == 0:
+            prog.add("storew", arg1=reg(), arg2=rng.randrange(2 * RAM_TAPE_WORDS))
+        elif roll == 1:
+            prog.add("loadw", des=reg(), arg2=rng.randrange(2 * RAM_TAPE_WORDS))
+        else:  # jump over the next instruction
+            prog.add(("jmp", "cjmp", "cnjmp")[roll - 2 + rng.randrange(2)],
+                     arg2=len(prog.instructions) + 2)
+            a2, imm = operand()
+            prog.add(rng.choice(RAM_ALU_OPS), des=reg(), arg1=reg(), arg2=a2, imm=imm)
+    for r in range(1, k):
+        prog.add("xor", des=0, arg1=0, arg2=r, imm=False)
+    prog.add("answer", arg2=0, imm=False)
+    _, result, _ = simulate(prog, tape, max_steps=1 << 12, init_mem=dict(enumerate(tape)))
+    prog.instructions.insert(len(prog.instructions) - 1, Instruction("sub", 0, 0, result, True))
+    return prog, tape
+
+
+def as_waksman_switches(n: int) -> int:
+    """Switches of an AS-Waksman network on n packets (gadgets/routing.py)."""
+    if n <= 1:
+        return 0
+    if n == 2:
+        return 1
+    half, odd = n // 2, n % 2
+    return half + half - 1 + odd + as_waksman_switches(half) + as_waksman_switches(half + odd)
+
+
+def ram_constraints(program, tape_len: int, T: int, per_step: int, base: int) -> int:
+    """Constraints of ``ram_to_r1cs(program, tape_len, T)``: ``base`` plus T
+    steps of ``per_step``, plus the memory network on M = tape_len + T rows
+    of 4 lines (a switch: 1 + 2 * 4 constraints) and each adjacent pair's
+    checks (8 and a decomposition of w + the time bits)."""
+    M = tape_len + T
+    time_bits = max(1, math.ceil(math.log2(M + 1)))
+    return (base + T * per_step + 9 * as_waksman_switches(M)
+            + (M - 1) * (8 + program.ap.w + time_bits))
+
+
+def ram_steps(program, tape_len: int, n: int):
+    """The most steps T for which the circuit's QAP (its constraints plus
+    tape_len + 1) fits a domain of n points, the per-step and fixed counts
+    taken from circuits of 1 and 2 steps: (T, its constraints by
+    ``ram_constraints``)."""
+    c1, c2 = (ram_to_r1cs(program, tape_len, T)[0].num_constraints - ram_constraints(
+        program, tape_len, T, 0, 0) for T in (1, 2))
+    per_step, base = c2 - c1, 2 * c1 - c2
+    T = 1
+    while ram_constraints(program, tape_len, T + 1, per_step, base) + tape_len + 1 <= n:
+        T += 1
+    return T, ram_constraints(program, tape_len, T, per_step, base)
+
+
+def ram_phase(model, hc, n: int, seed: int, pool):
+    """The RAM ppzkSNARK (PGHR13 on the RAM -> R1CS reduction) on a program
+    and tape drawn from the seed (``ram_program``), T steps such that the
+    circuit's QAP fills a domain of n points (``ram_steps``):
+    ``ram_ppzksnark.generator`` and ``prover`` (from ``--seed`` and
+    ``--seed`` + 1) with the launch counts set to 0 just before each and read
+    just after; the simulation accepting; the filled protoboard satisfied;
+    the proof against the host's scalars with no MSM (``pghr13_host_proof``
+    on the circuit's R1CS, the QAP at t by ``qap_at``); the QAP witness map
+    with the prover's d1, d2, d3; the verdicts (the tape accepted, a changed
+    tape word rejected).  Returns the prover's launch and lane counts, the
+    generator's lane counts."""
+    rr = model.Fr.p
+    t0 = time.perf_counter()
+    program, tape = ram_program(seed)
+    T, predicted = ram_steps(program, len(tape), n)
+    accepted, _, trace = simulate(program, tape, max_steps=T, init_mem=dict(enumerate(tape)))
+    if not accepted:
+        raise AssertionError(f"{hc.name} ram: the program does not accept its tape in {T} steps")
+    t_draw = time.perf_counter() - t0
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_gen, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "ram keygen",
+        lambda: ram_ppzksnark.generator(model, program, len(tape), T, random.Random(seed), kg_prof))
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "ram prove",
+        lambda: ram_ppzksnark.prover(model, kp, tape, random.Random(seed + 1), prof))
+    pb = kp._handles[0]
+    cs = kp.pk.constraint_system
+    qap_n = qap.qap_domain_size(cs, model.Fr)
+    if cs.num_constraints != predicted or qap_n != n:
+        raise AssertionError(f"{hc.name} ram: {cs.num_constraints} constraints (predicted "
+                             f"{predicted}), a QAP domain of {qap_n}")
+    t0 = time.perf_counter()
+    if not pb.is_satisfied():
+        raise AssertionError(f"{hc.name} ram: the filled protoboard is not satisfied")
+    primary, aux = pb.primary_input(), pb.auxiliary_input()
+    t_satisfied = time.perf_counter() - t0
+
+    # the verdict on a changed tape word on the pool, while this process checks the rest
+    t_verdicts = time.perf_counter()
+    bad_tape = [tape[0] ^ 1] + tape[1:]
+    rejected = pool.submit(verdict, (pghr13.verifier_strong_IC, kp.vk, bad_tape, proof))
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    t = rng.randrange(1, rr)
+    secrets = tuple(rng.randrange(1, rr) for _ in range(6))
+    draws = random.Random(seed + 1)
+    d = tuple(draws.randrange(rr) for _ in range(3))
+    Z, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
+    combG = HostComb(hc.g1, hc.g1_gen)
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, at_t = pghr13_host_proof(hc, combG, secrets, d, (Z, At, Bt, Ct), [1] + primary + aux,
+                                   len(primary), pool)
+    if proof != want:
+        raise AssertionError(f"{hc.name} ram proof differs from the host's scalars")
+    t_expected = time.perf_counter() - t0
+    wm = check_witness_map(model, cs, R1CSExample(cs, primary, aux), qap_n, t, Z, at_t, [d], pool)
+    del At, Bt, Ct
+    t0 = time.perf_counter()
+    if not ram_ppzksnark.verifier(model, kp, tape, proof):
+        raise AssertionError(f"{hc.name}: ram_ppzksnark rejects the card's proof")
+    t_verify = time.perf_counter() - t0
+    if rejected.result():
+        raise AssertionError(f"{hc.name}: ram_ppzksnark accepts a changed tape word")
+    t_verdicts = time.perf_counter() - t_verdicts
+    points = (*proof.g_A, *proof.g_B, *proof.g_C, proof.g_H, proof.g_K)
+    emit("ram", curve=hc.name, w=program.ap.w, k=program.ap.k, instructions=len(program.instructions),
+         tape_words=len(tape), steps_executed=len(trace), T=T, constraints=cs.num_constraints,
+         variables=cs.num_variables, qap_domain=qap_n, accepted=True, satisfied=True,
+         proof_sha256=proof_sha256(model, points), proof_equal=True,
+         verifier={"accepts": True, "rejects": ["changed tape word"]},
+         witness_map={"top": "d1 d2", "identity_at_t": True},
+         seconds={"generate": t_gen, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                  "prove_phases": dict(prof.cumulative), "verify": t_verify,
+                  "verdicts": t_verdicts, "witness_map_check": wm},
+         host_seconds={"draw_and_steps": t_draw, "is_satisfied": t_satisfied, "replay": t_replay,
+                       "expected_proof": t_expected},
          peak_device_bytes={"keygen": kg_peak, "prove": peak},
          launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
          keygen_lanes=top_lanes(kg_lanes))
@@ -2017,9 +2431,10 @@ def shape_picks(lanes: dict) -> dict:
 def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     """All phases of one curve.  Returns the launch counts of its largest
     prove, the kernels' numbers at that prove's lane counts, and by path
-    ("keygen", "groth16", "gm17", "pghr13" and, unless ``--tbcs*`` is 0,
-    "tbcs") the same for its key generation and its blinded Groth16, GM17,
-    PGHR13 and TBCS proves."""
+    ("keygen", "groth16", "gm17" and, unless their arguments are 0,
+    "pghr13", "adsnark", "ram" and "tbcs") the same for its key generation
+    and its blinded Groth16, GM17, PGHR13, ADSNARK, RAM and TBCS proves, with
+    the path's size."""
     model = MODELS[curve].get("cuda")
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
@@ -2058,28 +2473,51 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     g16_report = at_shapes(shape_picks(g16_lanes), "kernels_at_groth16_shapes")
     torch.cuda.empty_cache()
 
-    # GM17 and PGHR13 on the key generation's example, then BACS, then TBCS;
-    # the kernels also at their generators' and BACS's shapes that are new on
-    # this curve
-    paths = {"keygen": (kg_launches, kg_report), "groth16": (g16_launches, g16_report)}
-    for name, phase in (("gm17", gm17_phase), ("pghr13", pghr13_phase)):
-        path_launches, path_lanes, gen_lanes = phase(model, hc, args.keygen[curve], args.seed, ex,
-                                                     pool)
+    # GM17 and PGHR13 on the key generation's example (on MNT4753 on examples
+    # of their own, --gm17-4 and --pghr13-4), ADSNARK on its own, then BACS and the
+    # RAM ppzkSNARK (MNT4753), then TBCS; the kernels also at the generators'
+    # and BACS's shapes that are new on this curve
+    kg_n = args.keygen[curve]
+    paths = {"keygen": (kg_launches, kg_report, {"d_plus_1": kg_n}),
+             "groth16": (g16_launches, g16_report, {"d_plus_1": kg_n})}
+
+    def path_phase(name: str, size: dict, run):
+        path_launches, path_lanes, gen_lanes = run()
         torch.cuda.empty_cache()
-        paths[name] = (path_launches, at_shapes(shape_picks(path_lanes), f"kernels_at_{name}_shapes"))
+        paths[name] = (path_launches, at_shapes(shape_picks(path_lanes), f"kernels_at_{name}_shapes"),
+                       size)
         at_new_shapes(gen_lanes, f"kernels_at_{name}_generator_shapes")
         torch.cuda.empty_cache()
+
+    n17 = args.gm17[curve]
+    if n17:
+        ex17 = ex if n17 == kg_n else generate_r1cs_example_with_field_input(
+            model.Fr.p, n17 - 2, 1, random.Random(args.seed + 5))
+        path_phase("gm17", {"d_plus_1": n17},
+                   lambda: gm17_phase(model, hc, n17, args.seed, ex17, pool))
+        del ex17
+    n13 = args.pghr13[curve]
+    if n13:
+        ex13 = ex if n13 == kg_n else generate_r1cs_example_with_field_input(
+            model.Fr.p, n13 - 2, 1, random.Random(args.seed + 4))
+        path_phase("pghr13", {"d_plus_1": n13},
+                   lambda: pghr13_phase(model, hc, n13, args.seed, ex13, pool))
+        del ex13
+    del ex
+    if args.adsnark[curve]:
+        n_ads, l_ads = args.adsnark[curve]
+        path_phase("adsnark", {"d_plus_1": n_ads, "inputs": l_ads},
+                   lambda: adsnark_phase(model, hc, n_ads, l_ads, args.seed, pool))
     if curve == "MNT4753" and args.bacs_gates:
         for what, lanes in bacs_phase(model, hc, args.bacs_gates, args.seed).items():
             torch.cuda.empty_cache()
             at_new_shapes(lanes, f"kernels_at_bacs_{what}_shapes")
+    if curve == "MNT4753" and args.ram4:
+        path_phase("ram", {"qap_domain": args.ram4},
+                   lambda: ram_phase(model, hc, args.ram4, args.seed, pool))
     if args.tbcs[curve]:
-        path_launches, path_lanes, gen_lanes = tbcs_phase(model, hc, args.tbcs[curve], args.seed,
-                                                          pool)
-        torch.cuda.empty_cache()
-        paths["tbcs"] = (path_launches, at_shapes(shape_picks(path_lanes), "kernels_at_tbcs_shapes"))
-        at_new_shapes(gen_lanes, "kernels_at_tbcs_generator_shapes")
-        torch.cuda.empty_cache()
+        path_phase("tbcs", {"gates": args.tbcs[curve][0]},
+                   lambda: tbcs_phase(model, hc, args.tbcs[curve], args.seed, pool))
     return launches, report, paths
 
 
@@ -2087,9 +2525,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sizes4", default="1000,1048576,1572864",
+    ap.add_argument("--sizes4", default="1000,98304,1048576",
                     help="d + 1 of the MNT4753 full-size proves (the challenge's size is "
-                         "2^20; 1572864 = 2^20 + 2^19 takes a step domain, 1000 a geometric "
+                         "2^20; 98304 = 2^16 + 2^15 takes a step domain, 1000 a geometric "
                          "sequence domain, whose exact set-up is O(n^2))")
     ap.add_argument("--sizes6", default="24576,32768,819200",
                     help="d + 1 of the MNT6753 full-size proves (the challenge's size is "
@@ -2101,8 +2539,28 @@ def main(argv=None) -> int:
     ap.add_argument("--keygen6", type=int, default=1 << 15,
                     help="d + 1 of the MNT6753 key generation (a power of two; the "
                          "reference's default is 2^15)")
-    ap.add_argument("--bacs-gates", type=int, default=1 << 16,
+    ap.add_argument("--bacs-gates", type=int, default=1 << 14,
                     help="gates of the BACS circuit proved on MNT4753 (0: no bacs phase)")
+    ap.add_argument("--gm17-4", type=int, default=1 << 18,
+                    help="d + 1 of the MNT4753 gm17 phase's example, one of its own drawn from "
+                         "the seed (a power of two; its SAP domain is twice that; --keygen4's "
+                         "value takes the key generation's example; 0: no gm17 phase on "
+                         "MNT4753); MNT6753's runs on its key generation's example")
+    ap.add_argument("--pghr13-4", type=int, default=1 << 16,
+                    help="d + 1 of the MNT4753 pghr13 phase's example, one of its own drawn "
+                         "from the seed (a power of two; --keygen4's value takes the key "
+                         "generation's example; 0: no pghr13 phase on MNT4753); MNT6753's "
+                         "runs on its key generation's example")
+    ap.add_argument("--adsnark4", default="1048576,16",
+                    help="d + 1 and authenticated inputs of the MNT4753 adsnark phase's "
+                         "example (d + 1 - inputs - 1 constraints, a QAP domain of d + 1, a "
+                         "power of two; 0: no adsnark phase)")
+    ap.add_argument("--adsnark6", default="32768,8",
+                    help="the same on MNT6753 (0: no adsnark phase)")
+    ap.add_argument("--ram4", type=int, default=1 << 16,
+                    help="the QAP domain that the MNT4753 ram phase's circuit fills (a power "
+                         "of two, at least 2^16: its program runs about 85 steps; 0: no ram "
+                         "phase; its circuit is over MNT4753's Fr alone)")
     ap.add_argument("--tbcs4", default="130048,1024,32,1024",
                     help="gates, inputs, primary inputs and outputs of the TBCS circuit proved "
                          "on MNT4753 (2 gates + inputs + outputs USCS constraints: 2^18 by "
@@ -2124,6 +2582,23 @@ def main(argv=None) -> int:
     args.keygen = {"MNT4753": args.keygen4, "MNT6753": args.keygen6}
     if any(n < 8 or n & (n - 1) for n in args.keygen.values()):
         raise SystemExit("key generation needs d + 1 a power of two, at least 8")
+    args.gm17 = {"MNT4753": args.gm17_4, "MNT6753": args.keygen6}
+    args.pghr13 = {"MNT4753": args.pghr13_4, "MNT6753": args.keygen6}
+    for flag, n in (("--gm17-4", args.gm17_4), ("--pghr13-4", args.pghr13_4)):
+        if n and (n < 8 or n & (n - 1)):
+            raise SystemExit(f"{flag} takes 0 or a power of two, at least 8")
+    if args.ram4 and args.ram4 & (args.ram4 - 1):
+        raise SystemExit("--ram4 takes 0 or a power of two")
+    args.adsnark = {"MNT4753": args.adsnark4, "MNT6753": args.adsnark6}
+    for curve, spec in args.adsnark.items():
+        nl = tuple(int(v) for v in spec.split(","))  # d + 1, inputs
+        if nl == (0,):
+            args.adsnark[curve] = None
+        elif len(nl) != 2 or nl[0] < 8 or nl[0] & (nl[0] - 1) or not 1 <= nl[1] <= nl[0] - 3:
+            raise SystemExit("--adsnark4/--adsnark6 take 0 or d + 1 (a power of two, at least 8) "
+                             "and the inputs (1 to d - 2)")
+        else:
+            args.adsnark[curve] = nl
     args.tbcs = {"MNT4753": args.tbcs4, "MNT6753": args.tbcs6}
     for curve, spec in args.tbcs.items():
         gips = tuple(int(v) for v in spec.split(","))  # gates, inputs, primary, outputs
@@ -2162,8 +2637,9 @@ def main(argv=None) -> int:
 
     # one entry per kernel: its numbers from the first curve whose path runs it,
     # and under "also" those of a later curve that runs it with other moduli and lanes;
-    # under "keygen", "groth16", "gm17", "pghr13" and "tbcs" its numbers on each
-    # curve's key generation and on its blinded Groth16, GM17, PGHR13 and TBCS proves
+    # under "keygen", "groth16", "gm17", "pghr13", "adsnark", "ram" and "tbcs" its
+    # numbers on each curve's key generation and on its blinded Groth16, GM17,
+    # PGHR13, ADSNARK, RAM and TBCS proves
     kernels = {}
     for curve, (launches, report, paths) in results.items():
         for name, r in report.items():
@@ -2175,9 +2651,7 @@ def main(argv=None) -> int:
                 kernels[name] = {"name": name, "route": "cuda", "source": source,
                                  "replaces": replaces, "max_abs_err": errs[name],
                                  "library_ms": None, **entry}
-            for key, (path_launches, path_report) in paths.items():
-                size = ({"gates": args.tbcs[curve][0]} if key == "tbcs"
-                        else {"d_plus_1": args.keygen[curve]})
+            for key, (path_launches, path_report, size) in paths.items():
                 kernels[name].setdefault(key, []).append(
                     {"curve": curve, **size, "launches": path_launches[name], **path_report[name]})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

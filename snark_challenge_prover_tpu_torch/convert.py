@@ -14,11 +14,12 @@ import torch
 
 from .io.serialization import Groth16Input, Groth16Params
 from .ops.limbs import planes16_to_words, to_planes16
-from .proof_systems import bacs_ppzksnark, gm17, pghr13, tbcs_ppzksnark, uscs_ppzksnark
+from .proof_systems import adsnark, bacs_ppzksnark, gm17, pghr13, tbcs_ppzksnark, uscs_ppzksnark
 from .proof_systems.groth16_full import Proof, ProvingKey, VerificationKey
 from .relations.bacs import BACSCircuit, BACSGate
 from .relations.r1cs import LinearCombination, R1CSConstraint, R1CSConstraintSystem
 from .relations.tbcs import TBCSCircuit, TBCSGate
+from .relations.tinyram import Instruction, TinyRAMArchParams, TinyRAMProgram
 from .relations.uscs import USCSConstraintSystem
 
 
@@ -197,3 +198,48 @@ def tbcs_proving_key_from_jax(ref, device) -> tbcs_ppzksnark.ProvingKey:
     -> the port's."""
     return tbcs_ppzksnark.ProvingKey(circuit=tbcs_circuit_from_reference(ref.circuit),
                                      uscs_pk=uscs_proving_key_from_jax(ref.uscs_pk, device))
+
+
+def adsnark_proving_key_from_jax(ref, device) -> adsnark.ProvingKey:
+    """The JAX package's ADSNARK ``ProvingKey`` -> the port's, its queries as
+    word tensors on ``device``; rA_i_Z_g1 is host integers in both."""
+    queries = {k: _pair(getattr(ref, k), device)
+               for k in ("A_query_g", "A_query_h", "B_query_g", "B_query_h", "C_query_g",
+                         "C_query_h", "H_query", "K_query")}
+    return adsnark.ProvingKey(curve=ref.curve, **queries, rA_i_Z_g1=ref.rA_i_Z_g1,
+                              constraint_system=r1cs_from_reference(ref.constraint_system))
+
+
+def adsnark_verification_key_from_jax(ref) -> adsnark.VerificationKey:
+    """Host integers in both packages: a copy."""
+    return adsnark.VerificationKey(
+        curve=ref.curve, alphaA_g2=ref.alphaA_g2, alphaB_g1=ref.alphaB_g1,
+        alphaC_g2=ref.alphaC_g2, gamma_g2=ref.gamma_g2, gamma_beta_g1=ref.gamma_beta_g1,
+        gamma_beta_g2=ref.gamma_beta_g2, rC_Z_g2=ref.rC_Z_g2, A0=ref.A0, Ain=list(ref.Ain))
+
+
+def adsnark_proof_from_jax(ref) -> adsnark.Proof:
+    return adsnark.Proof(g_A=ref.g_A, g_B=ref.g_B, g_C=ref.g_C, g_H=ref.g_H, g_K=ref.g_K,
+                         g_Aau=ref.g_Aau, muA=ref.muA)
+
+
+def auth_keys_from_jax(ref) -> adsnark.AuthKeys:
+    """The JAX package's ADSNARK ``AuthKeys`` (host integers and the PRF
+    seed's bytes) -> the port's."""
+    return adsnark.AuthKeys(
+        pap=adsnark.PubAuthPrms(I1=ref.pap.I1),
+        pak=adsnark.PubAuthKey(minus_i2=ref.pak.minus_i2, sig_vk=ref.pak.sig_vk),
+        sak=adsnark.SecAuthKey(i=ref.sak.i, sig_sk=ref.sak.sig_sk, prf_seed=ref.sak.prf_seed))
+
+
+def auth_data_from_jax(ref) -> list:
+    """The JAX package's list of ``AuthData`` -> the port's."""
+    return [adsnark.AuthData(mu=ad.mu, Lambda=ad.Lambda, sigma=ad.sigma) for ad in ref]
+
+
+def tinyram_program_from_reference(ref) -> TinyRAMProgram:
+    """The JAX package's TinyRAM program -> the port's (the same machine and
+    instructions)."""
+    return TinyRAMProgram(TinyRAMArchParams(ref.ap.w, ref.ap.k),
+                          [Instruction(i.op, i.des, i.arg1, i.arg2, i.arg2_is_imm)
+                           for i in ref.instructions])

@@ -108,27 +108,30 @@ class Keypair:
     vk: VerificationKey
 
 
-def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = None) -> Keypair:
-    """r1cs_ppzksnark_generator (tcc:230-430), drawing from ``rng`` in the JAX
-    package's order: t, then alphaA, alphaB, alphaC, rA, rB, beta, gamma.
-    Phases: "pghr13 qap instance map", "pghr13 scalars", "pghr13 G1 window
-    table", "pghr13 G2 window table", "pghr13 G1 queries (fused)",
-    "pghr13 B query (G2)", "pghr13 vk singles"."""
-    prof = profiler if profiler is not None else Profiler(model.device, verbose=False)
-    hc = host_curve(model.name)
+def query_families(model, cs: R1CSConstraintSystem, rng, prof: Profiler, system: str,
+                   ic_split: bool):
+    """The generator's draws and queries (tcc:230-430), shared with ADSNARK:
+    t, then alphaA, alphaB, alphaC, rA, rB, beta, gamma from ``rng``; the
+    seven G1 families (and, with ``ic_split``, the IC, A's input rows then
+    zeroed in A's queries) through one window table and one
+    ``batch_exp_with_coeff``, B's G2 half through its own.  Phases "<system>
+    qap instance map", "<system> scalars", "<system> G1 window table",
+    "<system> G2 window table", "<system> G1 queries (fused)", "<system> B
+    query (G2)".  Returns ({query name: (x, y)}, with "IC" under ``ic_split``;
+    the secrets by name, with Z(t) as "Zt" and the number of inputs "l")."""
     Fr, G1, G2 = model.Fr, model.G1, model.G2
     r_p = Fr.p
 
     t = rng.randrange(1, r_p)
-    prof.enter_block("pghr13 qap instance map")
+    prof.enter_block(f"{system} qap instance map")
     inst = qap.instance_map_with_evaluation(cs, t, Fr)
-    prof.leave_block("pghr13 qap instance map")
+    prof.leave_block(f"{system} qap instance map")
     m, n, l = inst.num_variables, inst.domain_size, inst.num_inputs
     alphaA, alphaB, alphaC, rA, rB, beta, gamma = (rng.randrange(1, r_p) for _ in range(7))
     rC = rA * rB % r_p
     Zt = inst.Zt
 
-    prof.enter_block("pghr13 scalars")
+    prof.enter_block(f"{system} scalars")
     # A(t), B(t), C(t) with Z(t) as row m + 1
     words = Fr.from_canonical(canonical_words(Fr, inst.At + [Zt] + inst.Bt + [Zt] + inst.Ct + [Zt]))
     At, Bt, Ct = (words[:, k * (m + 2) : (k + 1) * (m + 2)] for k in range(3))
@@ -139,52 +142,74 @@ def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = 
                                  Fr.mul_const(Bt[:, : m + 1], c(beta * rB))),
                           Fr.mul_const(Ct[:, : m + 1], c(beta * rC))),
                    host_table(Fr, [beta * rX * Zt % r_p for rX in (rA, rB, rC)])], dim=1)
-    IC = At[:, : l + 1]
-    A0 = torch.cat([Fr.zeros((l + 1,)), At[:, l + 1 :]], dim=1)
-    families = [(A0, rA), (A0, rA * alphaA), (Bt, rB * alphaB), (Ct, rC), (Ct, rC * alphaC),
-                (power_table(Fr, t, n + 1), 1), (K, 1), (IC, rA)]
+    A = torch.cat([Fr.zeros((l + 1,)), At[:, l + 1 :]], dim=1) if ic_split else At
+    families = [(A, rA), (A, rA * alphaA), (Bt, rB * alphaB), (Ct, rC), (Ct, rC * alphaC),
+                (power_table(Fr, t, n + 1), 1), (K, 1)] + ([(At[:, : l + 1], rA)] if ic_split else [])
     g1_scalars = torch.cat([s for s, _ in families], dim=1)
     g1_coeffs = torch.cat([c(k).unsqueeze(1).expand(-1, s.shape[1]) for s, k in families], dim=1)
     counts = [s.shape[1] for s, _ in families]
     B2_coeff, B2_scalars = c(rB), Bt.contiguous()
-    del words, At, Bt, Ct, K, IC, A0, families
-    prof.leave_block("pghr13 scalars")
+    del words, At, Bt, Ct, K, A, families
+    prof.leave_block(f"{system} scalars")
 
     w1 = fixed_base.get_exp_window_size(g1_scalars.shape[1])
     w2 = fixed_base.get_exp_window_size(m + 2)
-    prof.enter_block("pghr13 G1 window table")
+    prof.enter_block(f"{system} G1 window table")
     t1 = fixed_base.get_window_table(G1, w1, model.g1_generator())
-    prof.leave_block("pghr13 G1 window table")
-    prof.enter_block("pghr13 G2 window table")
+    prof.leave_block(f"{system} G1 window table")
+    prof.enter_block(f"{system} G2 window table")
     t2 = fixed_base.get_window_table(G2, w2, model.g2_generator())
-    prof.leave_block("pghr13 G2 window table")
+    prof.leave_block(f"{system} G2 window table")
 
-    prof.enter_block("pghr13 G1 queries (fused)")
+    prof.enter_block(f"{system} G1 queries (fused)")
     x, y = _np_pair(G1, fixed_base.batch_exp_with_coeff(G1, w1, t1, g1_coeffs, g1_scalars, Fr))
     del g1_scalars, g1_coeffs, t1
     ends = [0]
     for k in counts:
         ends.append(ends[-1] + k)
-    Ag, Ah, Bh, Cg, Ch, Hq, Kq, ICq = ((x[:, a:b], y[:, a:b]) for a, b in zip(ends, ends[1:]))
-    prof.leave_block("pghr13 G1 queries (fused)")
-    prof.enter_block("pghr13 B query (G2)")
-    Bg = _np_pair(G2, fixed_base.batch_exp_with_coeff(G2, w2, t2, B2_coeff, B2_scalars, Fr))
+    names = ["A_query_g", "A_query_h", "B_query_h", "C_query_g", "C_query_h", "H_query", "K_query",
+             "IC"]
+    queries = {name: (x[:, a:b], y[:, a:b]) for name, a, b in zip(names, ends, ends[1:])}
+    prof.leave_block(f"{system} G1 queries (fused)")
+    prof.enter_block(f"{system} B query (G2)")
+    queries["B_query_g"] = _np_pair(G2, fixed_base.batch_exp_with_coeff(G2, w2, t2, B2_coeff,
+                                                                        B2_scalars, Fr))
     del B2_scalars, t2
-    prof.leave_block("pghr13 B query (G2)")
+    prof.leave_block(f"{system} B query (G2)")
+    secrets = {"alphaA": alphaA, "alphaB": alphaB, "alphaC": alphaC, "rA": rA, "rB": rB,
+               "rC": rC, "beta": beta, "gamma": gamma, "Zt": Zt, "l": l}
+    return queries, secrets
 
+
+def verification_singles(model, secrets: dict) -> dict:
+    """The verification key's points common to PGHR13 and ADSNARK (host
+    affine): alphaA H, alphaB G, alphaC H, gamma H, gamma beta G,
+    gamma beta H, rC Z(t) H."""
+    hc = host_curve(model.name)
+    G, H, r_p = hc.g1_gen, hc.g2_gen, hc.fr_spec.p
+    gb = secrets["gamma"] * secrets["beta"] % r_p
+    return {"alphaA_g2": hc.g2.mul(secrets["alphaA"], H), "alphaB_g1": hc.g1.mul(secrets["alphaB"], G),
+            "alphaC_g2": hc.g2.mul(secrets["alphaC"], H), "gamma_g2": hc.g2.mul(secrets["gamma"], H),
+            "gamma_beta_g1": hc.g1.mul(gb, G), "gamma_beta_g2": hc.g2.mul(gb, H),
+            "rC_Z_g2": hc.g2.mul(secrets["rC"] * secrets["Zt"] % r_p, H)}
+
+
+def generator(model, cs: R1CSConstraintSystem, rng, profiler: Profiler | None = None) -> Keypair:
+    """r1cs_ppzksnark_generator (tcc:230-430), drawing from ``rng`` in the JAX
+    package's order: t, then alphaA, alphaB, alphaC, rA, rB, beta, gamma.
+    Phases: "pghr13 qap instance map", "pghr13 scalars", "pghr13 G1 window
+    table", "pghr13 G2 window table", "pghr13 G1 queries (fused)",
+    "pghr13 B query (G2)", "pghr13 vk singles"."""
+    prof = profiler if profiler is not None else Profiler(model.device, verbose=False)
+    queries, secrets = query_families(model, cs, rng, prof, "pghr13", ic_split=True)
+    ICq = queries.pop("IC")
     prof.enter_block("pghr13 vk singles")
-    G, H = hc.g1_gen, hc.g2_gen
-    gb = gamma * beta % r_p
     vk = VerificationKey(
-        curve=model.name, alphaA_g2=hc.g2.mul(alphaA, H), alphaB_g1=hc.g1.mul(alphaB, G),
-        alphaC_g2=hc.g2.mul(alphaC, H), gamma_g2=hc.g2.mul(gamma, H),
-        gamma_beta_g1=hc.g1.mul(gb, G), gamma_beta_g2=hc.g2.mul(gb, H),
-        rC_Z_g2=hc.g2.mul(rC * Zt % r_p, H), encoded_IC_base=query_point(model, ICq, 0),
-        encoded_IC_values=[query_point(model, ICq, i) for i in range(1, l + 1)])
+        curve=model.name, **verification_singles(model, secrets),
+        encoded_IC_base=query_point(model, ICq, 0),
+        encoded_IC_values=[query_point(model, ICq, i) for i in range(1, secrets["l"] + 1)])
     prof.leave_block("pghr13 vk singles")
-    pk = ProvingKey(curve=model.name, A_query_g=Ag, A_query_h=Ah, B_query_g=Bg, B_query_h=Bh,
-                    C_query_g=Cg, C_query_h=Ch, H_query=Hq, K_query=Kq, constraint_system=cs)
-    return Keypair(pk, vk)
+    return Keypair(ProvingKey(curve=model.name, **queries, constraint_system=cs), vk)
 
 
 def prover(model, pk: ProvingKey, primary, auxiliary, rng,

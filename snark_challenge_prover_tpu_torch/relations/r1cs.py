@@ -35,6 +35,15 @@ class LinearCombination:
     def __add__(self, other: "LinearCombination"):
         return LinearCombination(self.terms + other.terms)
 
+    def __mul__(self, scalar: int):
+        return LinearCombination([(i, c * scalar) for i, c in self.terms])
+
+    __rmul__ = __mul__
+
+    def __sub__(self, other: "LinearCombination"):
+        """self + (-1) other: the terms of both, the second's negated."""
+        return self + (other * -1)
+
     def evaluate(self, assignment, p: int) -> int:
         """<self, (1, assignment...)> mod p."""
         acc = 0

@@ -34,7 +34,9 @@ def test_every_module_is_listed():
                  "relations.bacs", "reductions.bacs_to_r1cs", "proof_systems.bacs_ppzksnark",
                  "relations.uscs", "relations.tbcs", "reductions.tbcs_to_uscs",
                  "reductions.uscs_to_ssp", "proof_systems.uscs_ppzksnark",
-                 "proof_systems.tbcs_ppzksnark"):
+                 "proof_systems.tbcs_ppzksnark", "proof_systems.adsnark", "relations.tinyram",
+                 "gadgets.protoboard", "gadgets.routing", "reductions.ram_to_r1cs",
+                 "proof_systems.ram_ppzksnark"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
