@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sizes4 1000,98304,1048576]
+    python3 chip_smoke.py [--sizes4 250,98304,1048576]
                           [--sizes6 24576,32768,819200]
-                          [--keygen4 1048576] [--keygen6 32768] [--gm17-4 262144]
+                          [--keygen4 524288] [--keygen6 32768] [--gm17-4 262144]
                           [--pghr13-4 65536]
-                          [--adsnark4 1048576,16] [--adsnark6 32768,8]
+                          [--adsnark4 65536,16] [--adsnark6 32768,8]
                           [--bacs-gates 16384] [--ram4 65536]
                           [--tbcs4 130048,1024,32,1024] [--tbcs6 16128,256,8,256]
-                          [--seed 1]
+                          [--towers 4099] [--pcd 2] [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
-MNT4753 and for MNT6753 in turn: holds every kernel against its plain
+MNT4753 and for MNT6753 in turn: checks the curve's GT tower (``towers``:
+Fq4 / Fq6 mul, sqr, inv, every Frobenius power and the unitary inverse on
+norm-1 elements, and G2 ``mul_by_q``, at ``--towers`` lanes against exact
+host values); holds every kernel against its plain
 PyTorch version on the card (ragged N with the edge lanes), proves the
 committed fixture byte for byte through the command line's ``main``, and
 proves at full size (m = d + 1, all five MSMs) through ``prove_files`` on
@@ -19,7 +22,7 @@ files written in the wire format, checking the result against proof bytes
 that the host computes with exact integers, independently of the device
 code.  Before each full-size prove the files are read by both readers
 (the numpy one and the device reader that the prover uses on the card),
-timed, and their words held equal.  MNT4753 is proved at d + 1 = 1000 (a
+timed, and their words held equal.  MNT4753 is proved at d + 1 = 250 (a
 geometric sequence domain), at 2^16 + 2^15 = 98304 (step radix-2, the
 domain a circuit of 2^16 to 1.5 * 2^16 constraints gets) and at the
 challenge's own 2^20 (radix-2); MNT6753 at 2^14 + 2^13 = 24576 (step
@@ -33,7 +36,8 @@ and in bulk.
 
 Then each curve generates its keys (``keygen``: the command line's
 ``generate_for_curve`` on the card, MNT4753 at d + 1 = ``--keygen4``,
-MNT6753 at ``--keygen6``, the reference's defaults): its launch counts,
+2^19, half the reference's default, MNT6753 at ``--keygen6``, the
+reference's default): its launch counts,
 phase times and peak memory; its queries checked against exact host
 multiplication (the first and last entries, 256 random ones and every
 identity, with the scalars replayed from the seed on the host and the QAP
@@ -61,7 +65,7 @@ an example of its own at ``--gm17-4``, 2^18, a SAP domain of 2^19; on
 MNT6753 on the key generation's example, a SAP domain of 2^16) and the
 ``pghr13`` phase (on MNT4753 on an example of its own at ``--pghr13-4``,
 2^16; on MNT6753 on the key generation's), then the ``adsnark`` phase (ADSNARK on an example of
-its own with authenticated inputs: ``--adsnark4`` d + 1 = 2^20 with 16,
+its own with authenticated inputs: ``--adsnark4`` d + 1 = 2^16 with 16,
 ``--adsnark6`` 2^15 with 8; labels, authentication keys and signatures from
 the seed): the generator and the prover with their launch counts, phase
 times and peak memory; every query family, the single points and the
@@ -141,7 +145,8 @@ from snark_challenge_prover_tpu_torch.ops.fft import (  # noqa: E402
     get_domain_of_min_size, get_evaluation_domain)
 from snark_challenge_prover_tpu_torch.ops.field import canonical_words  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems import (  # noqa: E402
-    adsnark, bacs_ppzksnark, bg, gm17, groth16_full, pghr13, ram_ppzksnark, tbcs_ppzksnark)
+    adsnark, bacs_ppzksnark, bg, gm17, groth16_full, pcd, pghr13, ram_ppzksnark, tbcs_ppzksnark)
+from snark_challenge_prover_tpu_torch.proof_systems.ate_pairing import AtePairing, HostGT  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
 from snark_challenge_prover_tpu_torch.proof_systems.knowledge_commitment import (  # noqa: E402
@@ -153,7 +158,8 @@ from snark_challenge_prover_tpu_torch.reductions.ram_to_r1cs import ram_to_r1cs 
 from snark_challenge_prover_tpu_torch.relations.bacs import BACSCircuit, BACSGate  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.examples import (  # noqa: E402
     R1CSExample, generate_r1cs_example_with_field_input)
-from snark_challenge_prover_tpu_torch.relations.r1cs import LinearCombination  # noqa: E402
+from snark_challenge_prover_tpu_torch.relations.r1cs import (  # noqa: E402
+    LinearCombination, R1CSConstraint, R1CSConstraintSystem)
 from snark_challenge_prover_tpu_torch.relations.tbcs import TBCSCircuit, TBCSGate  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.tinyram import (  # noqa: E402
     Instruction, TinyRAMArchParams, TinyRAMProgram, simulate)
@@ -586,6 +592,116 @@ def check_kernels_at_new_shapes(model, g1_strip, g2_strip, rng, lanes, errs, don
                 rows.append(compare_at(model, g1_strip, g2_strip, rng, name, shape, seen[shape],
                                        errs, done))
     emit(phase, curve=model.name, compared=rows)
+
+
+# --------------------------------------------------------------------------
+# phase: towers (GT = Fq4 / Fq6, the Frobenius maps, G2 mul_by_q)
+# --------------------------------------------------------------------------
+def towers_expected(args) -> list:
+    """Exact host values for a piece of lanes of the towers check: for each
+    (a, b), a b, a^2, a^-1 (0 for 0), a^(q^k) for k < 2e, the norm-1
+    element u = a^(q^e) / a (1 for 0) and u^-1."""
+    name, pairs = args
+    gt = HostGT(host_curve(name).g2.F)
+    e = gt.base.deg
+    out = []
+    for a, b in pairs:
+        zero = a == (gt.base.zero, gt.base.zero)
+        inv = a if zero else gt.inv(a)
+        u = gt.one if zero else gt.mul(gt.frobenius_map(a, e), inv)
+        out.append((gt.mul(a, b), gt.sqr(a), inv,
+                    [gt.frobenius_map(a, k) for k in range(2 * e)], u, gt.inv(u)))
+    return out
+
+
+def gt_tensor(model, vals) -> torch.Tensor:
+    """GT elements (pairs of Fq^e tuples) -> (2, e, 24, n) Montgomery words."""
+    Fq, e = model.Fq, model.GT.base.deg
+    return torch.stack([torch.stack([field_tensor(Fq, [v[k][c] for v in vals], model.device)
+                                     for c in range(e)]) for k in range(2)])
+
+
+def ext_values(model, t: torch.Tensor) -> list:
+    """(e, 24, n) Montgomery words -> Fq^e tuples, on the host."""
+    spec = model.Fq.spec
+    comps = [[spec.from_mont(v) for v in words_to_ints(c)] for c in t.cpu().numpy()]
+    return [tuple(c[j] for c in comps) for j in range(t.shape[-1])]
+
+
+def gt_values(model, t: torch.Tensor) -> list:
+    """(2, e, 24, n) Montgomery words -> GT elements, on the host."""
+    return list(zip(ext_values(model, t[0]), ext_values(model, t[1])))
+
+
+def check_towers(model, hc, g2_strip, n: int, rng, pool) -> dict:
+    """The GT tower of the curve (Fq4 on MNT4753, Fq6 on MNT6753) on the
+    card at n lanes (0: the zero element, 1: one, 2: every component p - 1,
+    3: (p - 1, 0, ...), then random): mul, sqr, inv, frobenius_map for every
+    power below the degree, unitary_inverse on norm-1 elements, against
+    exact host values (``HostGT``, on ``pool``); and ``g2_mul_by_q`` on the
+    G2 strip tiled to n lanes with a random projective scale on each,
+    against q P by the same additive walk from q times the strip's first
+    point.  Each operation is timed (CUDA events) and its launches counted.
+    Returns the kernels' numbers for the summary line."""
+    GT, Fq, E = model.GT, model.Fq, model.G2.F
+    e, q = E.deg, Fq.p
+    t0 = time.perf_counter()
+    top = (q - 1,) * e
+    edge = [((0,) * e, (0,) * e), ((1,) + (0,) * (e - 1), (0,) * e), (top, top),
+            ((q - 1,) + (0,) * (e - 1), (0,) * e)]
+    rand = lambda: tuple(tuple(rng.randrange(q) for _ in range(e)) for _ in range(2))
+    a = (edge + [rand() for _ in range(n)])[:n]
+    b = [rand() for _ in range(n)]
+    want = list(chain.from_iterable(pool.map(towers_expected, [
+        (hc.name, part) for part in pieces(list(zip(a, b)))])))
+    # mul_by_q: strip point j of lane i is P_(i mod 128); q P_j by the walk
+    # (7 + 11 j) q G; every lane scaled by a random lambda != 0 of Fq^e
+    F = hc.g2.F
+    qG = hc.g2.mul(q % hc.fr_spec.p, hc.g2_gen)
+    Q, step, qstrip = hc.g2.mul(STRIP_BASE, qG), hc.g2.mul(STRIP_STEP, qG), []
+    for _ in range(len(g2_strip)):
+        qstrip.append(Q)
+        Q = hc.g2.add(Q, step)
+    lam = [tuple(rng.randrange(1, q) for _ in range(e)) for _ in range(n)]
+    pts = [g2_strip[i % len(g2_strip)] for i in range(n)]
+    ext = lambda vals: torch.stack([field_tensor(Fq, [v[c] for v in vals], model.device)
+                                    for c in range(e)])
+    P = (ext([F.mul(l, pt[0]) for l, pt in zip(lam, pts)]),
+         ext([F.mul(l, pt[1]) for l, pt in zip(lam, pts)]), ext(lam))
+    A, B = gt_tensor(model, a), gt_tensor(model, b)
+    U = gt_tensor(model, [w[4] for w in want])
+    t_host = time.perf_counter() - t0
+
+    ops = {"mul": lambda: GT.mul(A, B), "sqr": lambda: GT.sqr(A), "inv": lambda: GT.inv(A),
+           **{f"frobenius_map_{k}": (lambda k=k: GT.frobenius_map(A, k)) for k in range(2 * e)},
+           "unitary_inverse": lambda: GT.unitary_inverse(U), "g2_mul_by_q": lambda: model.g2_mul_by_q(P)}
+    rows, total = {}, 0
+    for name, fn in ops.items():
+        torch.cuda.synchronize()
+        cuda_field.launches.clear()
+        got = fn()
+        torch.cuda.synchronize()
+        launches = cuda_field.launches.get("mont_mul", 0)
+        total += launches
+        if name == "g2_mul_by_q":
+            X, Y, Z = (ext_values(model, t) for t in got)
+            for i, (x, y, z) in enumerate(zip(X, Y, Z)):  # (X : Y : Z) = (qx : qy : 1)
+                qx, qy = qstrip[i % len(qstrip)]
+                if x != F.mul(qx, z) or y != F.mul(qy, z):
+                    raise AssertionError(f"{hc.name}: g2_mul_by_q differs from q P at lane {i}")
+        else:
+            k = {"mul": 0, "sqr": 1, "inv": 2, "unitary_inverse": 5}.get(name)
+            exp = ([w[k] for w in want] if k is not None
+                   else [w[3][int(name.rsplit("_", 1)[1])] for w in want])
+            if gt_values(model, got) != exp:
+                raise AssertionError(f"{hc.name}: the card's GT {name} differs from the host's")
+        del got
+        rows[name] = {"launches": launches, "ms": time_ms(fn, 3 if name == "inv" else 20)}
+    emit("towers", curve=hc.name, field=GT.name, lanes=n, exact=True, ops=rows,
+         launches={"mont_mul": total}, seconds={"host_values": t_host,
+                                                 "total": time.perf_counter() - t0})
+    return {"mont_mul": {"lanes": n, "launches": total,
+                         "ms": {k: r["ms"] for k, r in rows.items()}}}
 
 
 # --------------------------------------------------------------------------
@@ -1034,6 +1150,17 @@ class HostComb:
         return self._affine(J)
 
 
+_COMBS = {}  # (field modulus, degree, base point) -> its HostComb, built once a run
+
+
+def host_comb(group, P) -> HostComb:
+    """The HostComb of ``group`` and base P, built on first use and kept."""
+    key = (group.F.p, group.F.deg, P)
+    if key not in _COMBS:
+        _COMBS[key] = HostComb(group, P)
+    return _COMBS[key]
+
+
 def host_keys(model, hc, ex, seed: int, pool):
     """The generator's secrets and scalars, replayed from the seed on the
     host for its example ``ex`` (the keygen's own: the generator drew it
@@ -1102,7 +1229,7 @@ def check_queries(model, hc, params_path: Path, keys: dict, n: int, seed: int, p
     g1s = keys["g1_scalar"]
     queries = [("A", keys["At"], 1), ("B1", keys["Bt"], 1), ("B2", keys["Bt"], deg),
                ("L", [v * dinv % r for v in abc[2:]], 1), ("H", [zdt * h % r for h in keys["Ht"]], 1)]
-    combs = {1: HostComb(hc.g1, hc.g1_gen), deg: HostComb(hc.g2, hc.g2_gen)}
+    combs = {1: host_comb(hc.g1, hc.g1_gen), deg: host_comb(hc.g2, hc.g2_gen)}
     raw = np.memmap(params_path, dtype=np.uint8, mode="r")
     if struct.unpack("<QQ", raw[:16].tobytes()) != (d, m):
         raise AssertionError(f"{hc.name} keygen: params header is not (d, m) = ({d}, {m})")
@@ -1220,7 +1347,8 @@ def qap_at_t(model, keys: dict, pool) -> dict:
     sum w_i C_i(t) over i > nin."""
     rr, w, nin = model.Fr.p, keys["w"], keys["nin"]
     out = {k: pool_dot(pool, w, keys[k + "t"], rr) for k in "ABC"}
-    tail = {k: pool_dot(pool, w[nin + 1 :], keys[k + "t"][nin + 1 :], rr) for k in "ABC"}
+    tail = {k: (out[k] - sum(a * b for a, b in zip(w[: nin + 1], keys[k + "t"]))) % rr
+            for k in "ABC"}
     out["L"] = (keys["beta"] * tail["A"] + keys["alpha"] * tail["B"] + tail["C"]) % rr
     return out
 
@@ -1661,7 +1789,7 @@ def gm17_phase(model, hc, n: int, seed: int, ex, pool):
     ab, g2z = (alpha + beta) % rr, gamma * gamma * Z % rr
     vq = [(gamma * c + ab * a) % rr for a, c in zip(At, Ct)]
     G, H = hc.g1.mul(g_s, hc.g1_gen), hc.g2.mul(h_s, hc.g2_gen)
-    combG, combH = HostComb(hc.g1, G), HostComb(hc.g2, hc.g2.mul(gamma, H))
+    combG, combH = host_comb(hc.g1, G), host_comb(hc.g2, hc.g2.mul(gamma, H))
     t_replay = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1806,7 +1934,7 @@ def pghr13_phase(model, hc, n: int, seed: int, ex, pool):
     Z, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
     qap_n = get_domain_of_min_size(model.Fr, cs.num_constraints + len(primary) + 1).n
     m, l = cs.num_variables, len(primary)
-    combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
+    combG, combH = host_comb(hc.g1, hc.g1_gen), host_comb(hc.g2, hc.g2_gen)
     t_replay = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -1928,7 +2056,7 @@ def adsnark_phase(model, hc, n: int, num_inputs: int, seed: int, pool):
     # both checks accepting the values (in pieces on the pool) and rejecting one changed
     t0 = time.perf_counter()
     lambdas = [adsnark._prf(sak.prf_seed, lb, rr) for lb in labels]
-    combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
+    combG, combH = host_comb(hc.g1, hc.g1_gen), host_comb(hc.g2, hc.g2_gen)
     if [ad.mu for ad in data] != [(lam + sak.i * v) % rr for lam, v in zip(lambdas, primary)] or \
             [ad.Lambda for ad in data] != pool_muls(pool, combH, lambdas):
         raise AssertionError(f"{hc.name} adsnark: a MAC or a Lambda differs from the host's")
@@ -2148,7 +2276,7 @@ def ram_phase(model, hc, n: int, seed: int, pool):
     draws = random.Random(seed + 1)
     d = tuple(draws.randrange(rr) for _ in range(3))
     Z, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
-    combG = HostComb(hc.g1, hc.g1_gen)
+    combG = host_comb(hc.g1, hc.g1_gen)
     t_replay = time.perf_counter() - t0
     t0 = time.perf_counter()
     want, at_t = pghr13_host_proof(hc, combG, secrets, d, (Z, At, Bt, Ct), [1] + primary + aux,
@@ -2356,7 +2484,7 @@ def tbcs_phase(model, hc, sizes, seed: int, pool):
     at = ssp_at(model, hc, cs, w, t, pool)
     kind, n, Z, Vt, l, m = at["kind"], at["n"], at["Zt"], at["Vt"], num_primary, cs.num_variables
     table = Vt + [Z]
-    combG, combH = HostComb(hc.g1, hc.g1_gen), HostComb(hc.g2, hc.g2_gen)
+    combG, combH = host_comb(hc.g1, hc.g1_gen), host_comb(hc.g2, hc.g2_gen)
     t_replay = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2409,6 +2537,182 @@ def tbcs_phase(model, hc, sizes, seed: int, pool):
     return launches, lanes, kg_lanes
 
 
+# --------------------------------------------------------------------------
+# phase: pcd (single-predicate PCD over the MNT cycle)
+# --------------------------------------------------------------------------
+PCD_LOCAL = (3, 7, 5)  # the increments of steps 0, 1 and 2 (step k > 2 adds k + 2)
+
+
+def counter_predicate(p: int):
+    """out = in + local over [1 | out type, out value | arity | in type, in
+    value | local]; primary = the outgoing message (the JAX package's
+    tests/test_pcd.py:32-48)."""
+    cs = R1CSConstraintSystem(p, primary_input_size=2, auxiliary_input_size=4)
+    cs.add_constraint(R1CSConstraint(LinearCombination.of_var(5) + LinearCombination.of_var(6),
+                                     LinearCombination.of_var(0), LinearCombination.of_var(2)))
+    return pcd.CompliancePredicate(name=1, type=1, constraint_system=cs,
+                                   outgoing_message_payload_length=1, max_arity=1,
+                                   incoming_message_payload_lengths=[1], local_data_length=1,
+                                   witness_length=0)
+
+
+def groth16_key_checks(model, hc, pk, vk, keys: dict, n: int, rng, pool) -> dict:
+    """An in-process ``groth16_full`` key against exact multiplication of
+    the generator's replayed secrets (``keys``: t, alpha, beta, delta,
+    g1_scalar, the QAP at t and Z(t)) over a QAP domain of n: the five query
+    families (``check_family``), the single points, ABC and e(alpha, beta)
+    as e(g1 base, G2)^(alpha beta).  Raises on a difference; returns the
+    families' counts."""
+    r = model.Fr.p
+    g1s, dinv, nin = keys["g1_scalar"], pow(keys["delta"], -1, r), keys["nin"]
+    abc = [(keys["beta"] * a + keys["alpha"] * b + c) % r
+           for a, b, c in zip(keys["At"], keys["Bt"], keys["Ct"])]
+    combG, combH = host_comb(hc.g1, hc.g1_gen), host_comb(hc.g2, hc.g2_gen)
+    checked = {key: check_family(model, hc, key, getattr(pk, key), values, coeff, comb, rng, pool)
+               for key, values, coeff, comb in (
+                   ("A_query", keys["At"], g1s, combG), ("B_query_g1", keys["Bt"], g1s, combG),
+                   ("B_query_g2", keys["Bt"], 1, combH),
+                   ("L_query", [v * dinv % r for v in abc[nin + 1 :]], g1s, combG),
+                   ("H_query", Powers(keys["t"], n - 1, r), keys["Zt"] * dinv * g1s, combG))}
+    g1b = combG.mul(g1s)
+    engine = AtePairing(hc)
+    singles = ((pk.alpha_g1, combG.mul(keys["alpha"] * g1s % r)),
+               (pk.beta_g1, combG.mul(keys["beta"] * g1s % r)),
+               (pk.delta_g1, combG.mul(keys["delta"] * g1s % r)),
+               (pk.beta_g2, combH.mul(keys["beta"])), (pk.delta_g2, combH.mul(keys["delta"])),
+               (vk.delta_g2, pk.delta_g2),
+               (vk.ABC_g1, [combG.mul(v * g1s % r) for v in abc[: nin + 1]]),
+               (vk.alpha_g1_beta_g2, engine.GT.pow(engine.reduced_pairing(g1b, hc.g2_gen),
+                                                   keys["alpha"] * keys["beta"] % r)))
+    if any(got != want for got, want in singles):
+        raise AssertionError(f"{hc.name} pcd: the single points or the verification key differ")
+    return checked
+
+
+def pcd_step(ctx: dict, k: int, pred, prev, seed: int, pool) -> dict:
+    """Step k of the chain on ``ctx``'s curve (the outer one): the step
+    circuit and its key (``SPPCDProver.keygen``), the fill checks, the prove,
+    each with the launch counts set to 0 just before and read just after;
+    then the key against exact multiplication of the secrets replayed from
+    the seed (the QAP at t by ``qap_at``), the proof against the host's
+    scalars with no MSM, the verdicts.  ``prev`` is the previous step's
+    (vk, proof, outgoing message, inner curve) or None for the base case.
+    Returns the step's key, proof, message, launch and lane counts."""
+    model, hc = ctx["model"], ctx["hc"]
+    rr = model.Fr.p
+    arity = 0 if prev is None else 1
+    inner_vk, inner_proof, inc_msg, inner = prev or (None, None, None, None)
+    incoming = [inc_msg or pcd.R1CSPCDMessage(1, [0])]
+    local = PCD_LOCAL[k] if k < len(PCD_LOCAL) else k + 2
+    out = pcd.R1CSPCDMessage(1, [(incoming[0].payload[0] + local) % rr])
+    ld = pcd.R1CSPCDLocalData([local])
+    prover = pcd.SPPCDProver(hc.name, model.device)
+    kg_seed, pr_seed = seed + 100 + k, seed + 200 + k
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_kg, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "pcd keygen",
+        lambda: prover.keygen(pred, random.Random(kg_seed), inner_vk, arity, kg_prof))
+    cs, circ = kp.pk.constraint_system, kp.circuit
+    nin = cs.primary_input_size
+    domain = get_domain_of_min_size(model.Fr, cs.num_constraints + nin + 1)
+    n = domain.n
+
+    fills, t0 = {"real": True}, time.perf_counter()
+    if arity:  # a forged predecessor (A + G1) and a wrong outgoing message
+        ihc = host_curve(inner)
+        forged = groth16_full.Proof(ihc.g1.add(inner_proof.g_A, ihc.g1_gen), inner_proof.g_B,
+                                    inner_proof.g_C)
+        wrong = pcd.R1CSPCDMessage(1, [out.payload[0] + 1])
+        fills["forged_proof"] = circ.fill(out, incoming, ld, [], [forged])
+        fills["wrong_message"] = circ.fill(wrong, incoming, ld, [], [inner_proof])
+        if fills["forged_proof"] is not False or fills["wrong_message"] is not False:
+            raise AssertionError(f"{hc.name} pcd step {k}: fill accepts {fills}")
+    t_fills = time.perf_counter() - t0
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "pcd prove",
+        lambda: prover.prove(kp, out, incoming, ld, [], random.Random(pr_seed),
+                             None if prev is None else [inner_proof], prof))
+
+    t0 = time.perf_counter()
+    rng = random.Random(kg_seed)
+    t, alpha, beta, delta, g1s = (rng.randrange(1, rr) for _ in range(5))
+    zt, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
+    keys = {"t": t, "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": g1s, "Zt": zt,
+            "At": At, "Bt": Bt, "Ct": Ct, "nin": nin,
+            "w": [1] + circ.pb.primary_input() + circ.pb.auxiliary_input()}
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = groth16_key_checks(model, hc, kp.pk, kp.vk, keys, n, random.Random(seed + k), pool)
+    t_checks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blind = random.Random(pr_seed)
+    r, s_ = blind.randrange(rr), blind.randrange(rr)
+    a, b, c = blinded_scalars(model, keys, qap_at_t(model, keys, pool), r, s_)
+    combG = host_comb(hc.g1, hc.g1_gen)
+    want = (combG.mul(a * g1s % rr), hc.g2.mul(b, hc.g2_gen), combG.mul(c * g1s % rr))
+    if (proof.g_A, proof.g_B, proof.g_C) != want:
+        raise AssertionError(f"{hc.name} pcd step {k}: the proof differs from the host's scalars")
+    t_expected = time.perf_counter() - t0
+    del At, Bt, Ct, keys
+
+    t0 = time.perf_counter()
+    wrong_msg = [1, (out.payload[0] + 1) % rr]
+    rejected = pool.submit(verdict, (groth16_full.verifier_strong_IC, kp.vk, wrong_msg, proof))
+    t1 = time.perf_counter()
+    if not prover.verify(kp, out, proof):
+        raise AssertionError(f"{hc.name} pcd step {k}: verify rejects the card's proof")
+    t_verify = time.perf_counter() - t1
+    if rejected.result():
+        raise AssertionError(f"{hc.name} pcd step {k}: verify accepts (1, value + 1)")
+    t_verdicts = time.perf_counter() - t0
+    sha = hashlib.sha256(proof.to_bytes(model)).hexdigest()
+    emit("pcd", step=k, curve=hc.name, inner=inner, arity=arity, message=out.as_assignment(),
+         constraints=cs.num_constraints, variables=cs.num_variables, qap_domain=n,
+         qap_domain_kind=type(domain).__name__, fill=fills, queries_checked=checked,
+         proof_sha256=sha, proof_equal=True,
+         verifier={"accepts": out.as_assignment(), "rejects": [wrong_msg]},
+         seconds={"keygen": t_kg, "keygen_phases": dict(kg_prof.cumulative), "fill_checks": t_fills,
+                  "prove": t_prove, "prove_phases": dict(prof.cumulative), "verify": t_verify,
+                  "verdicts": t_verdicts},
+         host_seconds={"replay": t_replay, "query_checks": t_checks, "expected_proof": t_expected},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    return {"vk": kp.vk, "proof": proof, "out": out, "sha": sha, "qap_domain": n,
+            "launches": launches, "lanes": lanes, "kg_lanes": kg_lanes}
+
+
+def pcd_phase(contexts: dict, steps: int, seed: int, errs: dict, pool) -> list:
+    """A chain of steps + 1 proofs with the counter predicate: the base case
+    on MNT4753 (arity 0, message (1, 3)), then each step on the other curve
+    (arity 1), its circuit verifying the previous proof in-circuit against
+    the previous key, its message the previous one plus 7, 5, ... (``pcd_step``);
+    after each step the kernels at its prove's and its generator's shapes
+    on that curve.  Returns, per step, the curve, the QAP domain, the
+    prove's launches and the kernels' numbers at its shapes."""
+    out, prev, t0 = [], None, time.perf_counter()
+    for k in range(steps + 1):
+        curve = "MNT4753" if k % 2 == 0 else "MNT6753"
+        ctx = contexts[curve]
+        model = ctx["model"]
+        step = pcd_step(ctx, k, counter_predicate(model.Fr.p), prev, seed, pool)
+        torch.cuda.empty_cache()
+        args = (model, ctx["g1_strip"], ctx["g2_strip"], ctx["rng"])
+        report = check_kernels_at_path_shapes(*args, shape_picks(step["lanes"]), errs, ctx["done"],
+                                              "kernels_at_pcd_shapes")
+        check_kernels_at_new_shapes(*args, step["kg_lanes"], errs, ctx["done"],
+                                    "kernels_at_pcd_generator_shapes")
+        torch.cuda.empty_cache()
+        out.append({"curve": curve, "step": k, "qap_domain": step["qap_domain"],
+                    "launches": step["launches"], "report": report, "sha": step["sha"],
+                    "message": step["out"].as_assignment()})
+        prev = (step["vk"], step["proof"], step["out"], curve)
+    emit("pcd_chain", proofs=steps + 1,
+         chain=[{k: s[k] for k in ("step", "curve", "qap_domain", "message", "sha")} for s in out],
+         seconds=time.perf_counter() - t0)
+    return out
+
+
 def largest_and_commonest(name: str, seen: dict) -> set:
     """The largest shape of ``seen`` ({shape: launches}; a doubling's (lanes,
     k) by lanes times k) and the one launched most."""
@@ -2434,7 +2738,9 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     ("keygen", "groth16", "gm17" and, unless their arguments are 0,
     "pghr13", "adsnark", "ram" and "tbcs") the same for its key generation
     and its blinded Groth16, GM17, PGHR13, ADSNARK, RAM and TBCS proves, with
-    the path's size."""
+    the path's size; and what the pcd phase needs of the curve (its model,
+    strips, generator and compared shapes) with the towers check's
+    numbers."""
     model = MODELS[curve].get("cuda")
     hc = host_curve(curve)
     g1_strip, g2_strip = strips(hc)
@@ -2444,6 +2750,8 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
         model, g1_strip, g2_strip, rng, lanes, errs, done, phase)
     at_new_shapes = lambda lanes, phase: check_kernels_at_new_shapes(
         model, g1_strip, g2_strip, rng, lanes, errs, done, phase)
+    towers = (check_towers(model, hc, g2_strip, args.towers, random.Random(args.seed + 13), pool)
+              if args.towers else {})
     check_kernels(model, g1_strip, g2_strip, rng, errs, (1, default_window_bits(max(sizes))))
     prove_small(curve, workdir)
     runs = []
@@ -2518,24 +2826,27 @@ def run_curve(curve: str, sizes, args, workdir: Path, errs: dict, pool):
     if args.tbcs[curve]:
         path_phase("tbcs", {"gates": args.tbcs[curve][0]},
                    lambda: tbcs_phase(model, hc, args.tbcs[curve], args.seed, pool))
-    return launches, report, paths
+    ctx = {"model": model, "hc": hc, "g1_strip": g1_strip, "g2_strip": g2_strip, "rng": rng,
+           "done": done, "towers": towers}
+    return launches, report, paths, ctx
 
 
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sizes4", default="1000,98304,1048576",
+    ap.add_argument("--sizes4", default="250,98304,1048576",
                     help="d + 1 of the MNT4753 full-size proves (the challenge's size is "
-                         "2^20; 98304 = 2^16 + 2^15 takes a step domain, 1000 a geometric "
+                         "2^20; 98304 = 2^16 + 2^15 takes a step domain, 250 a geometric "
                          "sequence domain, whose exact set-up is O(n^2))")
     ap.add_argument("--sizes6", default="24576,32768,819200",
                     help="d + 1 of the MNT6753 full-size proves (the challenge's size is "
                          "32768; 24576 = 2^14 + 2^13 takes a step domain; 819200 = 25 * 2^15 "
                          "is the largest domain of its scalar field)")
-    ap.add_argument("--keygen4", type=int, default=1 << 20,
-                    help="d + 1 of the MNT4753 key generation (a power of two; the "
-                         "reference's default is 2^20)")
+    ap.add_argument("--keygen4", type=int, default=1 << 19,
+                    help="d + 1 of the MNT4753 key generation and groth16 phase (a power of "
+                         "two; the reference's default is 2^20, which the challenge prove "
+                         "at --sizes4's 2^20 keeps on the path)")
     ap.add_argument("--keygen6", type=int, default=1 << 15,
                     help="d + 1 of the MNT6753 key generation (a power of two; the "
                          "reference's default is 2^15)")
@@ -2551,7 +2862,7 @@ def main(argv=None) -> int:
                          "from the seed (a power of two; --keygen4's value takes the key "
                          "generation's example; 0: no pghr13 phase on MNT4753); MNT6753's "
                          "runs on its key generation's example")
-    ap.add_argument("--adsnark4", default="1048576,16",
+    ap.add_argument("--adsnark4", default="65536,16",
                     help="d + 1 and authenticated inputs of the MNT4753 adsnark phase's "
                          "example (d + 1 - inputs - 1 constraints, a QAP domain of d + 1, a "
                          "power of two; 0: no adsnark phase)")
@@ -2568,6 +2879,14 @@ def main(argv=None) -> int:
     ap.add_argument("--tbcs6", default="16128,256,8,256",
                     help="the same on MNT6753 (2^15 constraints by default, its scalar "
                          "field's largest radix-2 domain; 0: no tbcs phase)")
+    ap.add_argument("--towers", type=int, default=4099,
+                    help="lanes of the towers check on each curve, before its kernel "
+                         "comparisons (the GT tower, its Frobenius maps and G2 mul_by_q "
+                         "against exact host values; 0: no towers check)")
+    ap.add_argument("--pcd", type=int, default=2,
+                    help="recursive steps of the pcd phase after the base case: a chain of "
+                         "--pcd + 1 proofs alternating MNT4753 and MNT6753, after both curves' "
+                         "phases (needs both curves; 0: no pcd phase)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
@@ -2575,6 +2894,8 @@ def main(argv=None) -> int:
     curves = args.curves.split(",")
     if not curves or any(c not in MODELS for c in curves):
         raise SystemExit(f"--curves takes a comma-separated subset of {', '.join(MODELS)}")
+    if args.pcd and set(curves) != set(MODELS):
+        raise SystemExit("--pcd needs both curves (--pcd 0 skips the phase)")
     sizes = {"MNT4753": sorted(int(v) for v in args.sizes4.split(",")),  # int() refuses ""
              "MNT6753": sorted(int(v) for v in args.sizes6.split(","))}
     if any(n < 8 for v in sizes.values() for n in v):
@@ -2616,22 +2937,27 @@ def main(argv=None) -> int:
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    libs = _build.build_all()
-    emit("build", seconds=_build.build_seconds,
-         ptxas=[ln.strip() for ln in _build.build_log.splitlines()
-                if "Compiling entry" in ln or "Function properties" in ln or "Used" in ln
-                or ("stack frame" in ln and not ln.strip().startswith("0 bytes"))])
-    for stem in ("ec_add", "ec_dbl"):
-        emit("sass", **sass_counts(libs[stem]))
-
     errs, results = {}, {}
+    workers = min(8, os.cpu_count() or 1)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        # host processes for the Lagrange basis of the checks, their longest host work
-        with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+        # host processes for the Lagrange basis of the checks, their longest host work;
+        # they start, and import this script, while nvcc builds the kernels
+        with ProcessPoolExecutor(max_workers=workers,
                                  mp_context=multiprocessing.get_context("spawn")) as pool:
+            for _ in range(workers):
+                pool.submit(os.getpid)
+            libs = _build.build_all()
+            emit("build", seconds=_build.build_seconds,
+                 ptxas=[ln.strip() for ln in _build.build_log.splitlines()
+                        if "Compiling entry" in ln or "Function properties" in ln or "Used" in ln
+                        or ("stack frame" in ln and not ln.strip().startswith("0 bytes"))])
+            for stem in ("ec_add", "ec_dbl"):
+                emit("sass", **sass_counts(libs[stem]))
             for curve in curves:
                 results[curve] = run_curve(curve, sizes[curve], args, workdir, errs, pool)
+            chain_steps = (pcd_phase({c: r[3] for c, r in results.items()}, args.pcd, args.seed,
+                                     errs, pool) if args.pcd else [])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2639,9 +2965,10 @@ def main(argv=None) -> int:
     # and under "also" those of a later curve that runs it with other moduli and lanes;
     # under "keygen", "groth16", "gm17", "pghr13", "adsnark", "ram" and "tbcs" its
     # numbers on each curve's key generation and on its blinded Groth16, GM17,
-    # PGHR13, ADSNARK, RAM and TBCS proves
+    # PGHR13, ADSNARK, RAM and TBCS proves; under "towers" the towers check's
+    # launches and times (mont_mul alone), under "pcd" each chain step's prove
     kernels = {}
-    for curve, (launches, report, paths) in results.items():
+    for curve, (launches, report, paths, ctx) in results.items():
         for name, r in report.items():
             entry = {"curve": curve, "launches": launches[name], **r}
             if name in kernels:
@@ -2654,6 +2981,15 @@ def main(argv=None) -> int:
             for key, (path_launches, path_report, size) in paths.items():
                 kernels[name].setdefault(key, []).append(
                     {"curve": curve, **size, "launches": path_launches[name], **path_report[name]})
+            if args.towers:
+                kernels[name].setdefault("towers", []).append(
+                    {"curve": curve, "lanes": args.towers, "launches": 0,
+                     **ctx["towers"].get(name, {})})
+    for step in chain_steps:
+        for name, r in step["report"].items():
+            kernels[name].setdefault("pcd", []).append(
+                {"curve": step["curve"], "step": step["step"], "qap_domain": step["qap_domain"],
+                 "launches": step["launches"][name], **r})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

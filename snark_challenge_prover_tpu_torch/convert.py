@@ -16,6 +16,7 @@ from .io.serialization import Groth16Input, Groth16Params
 from .ops.limbs import planes16_to_words, to_planes16
 from .proof_systems import adsnark, bacs_ppzksnark, gm17, pghr13, tbcs_ppzksnark, uscs_ppzksnark
 from .proof_systems.groth16_full import Proof, ProvingKey, VerificationKey
+from .proof_systems.pcd import CompliancePredicate, R1CSPCDLocalData, R1CSPCDMessage
 from .relations.bacs import BACSCircuit, BACSGate
 from .relations.r1cs import LinearCombination, R1CSConstraint, R1CSConstraintSystem
 from .relations.tbcs import TBCSCircuit, TBCSGate
@@ -24,11 +25,11 @@ from .relations.uscs import USCSConstraintSystem
 
 
 def _words(planes) -> np.ndarray:
-    """Limb planes with the limb axis second-to-last -> word arrays."""
+    """Limb planes ((48, N) under any component axes) -> word arrays."""
     planes = np.asarray(planes)
     if planes.ndim == 2:
         return planes16_to_words(planes)
-    return np.stack([planes16_to_words(c) for c in planes])
+    return np.stack([_words(c) for c in planes])
 
 
 def params_from_reference(ref) -> Groth16Params:
@@ -45,15 +46,17 @@ def input_from_reference(ref) -> Groth16Input:
 
 
 def tensor_from_planes(planes, device) -> torch.Tensor:
-    """Limb planes ((48, N) or (deg, 48, N)) -> the port's tensor on ``device``."""
+    """Limb planes ((48, N), (deg, 48, N), or (2, deg, 48, N) for the JAX
+    package's Fq4 / Fq6) -> the port's tensor on ``device``."""
     return torch.from_numpy(_words(planes)).to(device)
 
 
 def planes_from_port(x: torch.Tensor) -> np.ndarray:
-    """The port's tensor ((24, ...) or (deg, 24, ...)) -> 16-bit limb planes."""
+    """The port's tensor ((24, ...) under any component axes, an Fq4 / Fq6
+    element's two) -> 16-bit limb planes."""
     if x.shape[0] == 24:
         return to_planes16(x)
-    return np.stack([to_planes16(c) for c in x])
+    return np.stack([planes_from_port(c) for c in x])
 
 
 def r1cs_from_reference(ref) -> R1CSConstraintSystem:
@@ -243,3 +246,23 @@ def tinyram_program_from_reference(ref) -> TinyRAMProgram:
     return TinyRAMProgram(TinyRAMArchParams(ref.ap.w, ref.ap.k),
                           [Instruction(i.op, i.des, i.arg1, i.arg2, i.arg2_is_imm)
                            for i in ref.instructions])
+
+
+def compliance_predicate_from_jax(ref) -> CompliancePredicate:
+    """The JAX package's PCD ``CompliancePredicate`` -> the port's (the same
+    fields, its R1CS with the same terms)."""
+    return CompliancePredicate(
+        name=ref.name, type=ref.type, constraint_system=r1cs_from_reference(ref.constraint_system),
+        outgoing_message_payload_length=ref.outgoing_message_payload_length,
+        max_arity=ref.max_arity,
+        incoming_message_payload_lengths=list(ref.incoming_message_payload_lengths),
+        local_data_length=ref.local_data_length, witness_length=ref.witness_length,
+        relies_on_same_type_inputs=ref.relies_on_same_type_inputs)
+
+
+def pcd_message_from_jax(ref) -> R1CSPCDMessage:
+    return R1CSPCDMessage(type=ref.type, payload=list(ref.payload))
+
+
+def pcd_local_data_from_jax(ref) -> R1CSPCDLocalData:
+    return R1CSPCDLocalData(payload=list(ref.payload))

@@ -12,8 +12,9 @@ import torch
 
 from ..ops.cuda_group import AddKernel, DblKernel
 from ..ops.field import Fp, resolve_device
+from ..ops.frobenius import mnt4753_twist_mul_by_q
 from ..ops.group import Curve
-from ..ops.towers import Fp2
+from ..ops.towers import Fp2, Fp4
 from .primes import FIELD_A, FIELD_B
 
 # G1 generator affine coordinates (mnt4753_init.cpp:140-142)
@@ -71,6 +72,9 @@ class MNT4753:
         self.Fr = Fp(FIELD_A, self.device, "MNT4753.Fr")
         self.Fq = Fp(FIELD_B, self.device, "MNT4753.Fq")
         self.Fq2 = Fp2(self.Fq, FQ2_NON_RESIDUE, "MNT4753.Fq2")
+        # GT = Fq4 (the ate pairing's target, fp4.tcc)
+        self.Fq4 = Fp4(self.Fq2, FQ2_NON_RESIDUE, "MNT4753.Fq4")
+        self.GT = self.Fq4
         q = self.Fq.p
         self.G1 = Curve(self.Fq, self.Fq.const(G1_COEFF_A), self.Fq.const(G1_COEFF_B),
                         self.device, "MNT4753.G1", G1_ADD_KERNEL, G1_DBL_KERNEL)
@@ -92,6 +96,17 @@ class MNT4753:
         return (torch.stack([Fq.const(c) for c in (G2_ONE_X0, G2_ONE_X1)]),
                 torch.stack([Fq.const(c) for c in (G2_ONE_Y0, G2_ONE_Y1)]),
                 torch.stack([Fq.const(1)] + [Fq.const(0)] * 1))
+
+    def g2_mul_by_q(self, P):
+        """The Frobenius endomorphism on G2 (mnt4753_g2.cpp:364-369,
+        mnt4753_init.cpp:131-132): (tx X^q, ty Y^q, Z^q) for a projective
+        batch P, the twist multipliers from ops.frobenius."""
+        tx, ty = mnt4753_twist_mul_by_q()
+        E, Fq = self.Fq2, self.Fq
+        X, Y, Z = P
+        return (E.scale_prime_const(E.frobenius_map(X, 1), Fq.const(tx)),
+                E.scale_prime_const(E.frobenius_map(Y, 1), Fq.const(ty)),
+                E.frobenius_map(Z, 1))
 
 
 def get(device="cuda") -> MNT4753:

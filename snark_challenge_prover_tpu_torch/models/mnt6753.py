@@ -13,8 +13,9 @@ import torch
 
 from ..ops.cuda_group import AddKernel, DblKernel
 from ..ops.field import Fp, resolve_device
+from ..ops.frobenius import mnt6753_twist_mul_by_q
 from ..ops.group import Curve
-from ..ops.towers import Fp3
+from ..ops.towers import Fp3, Fp6_2over3
 from .primes import FIELD_A, FIELD_B_SMALL
 
 # G1 generator affine coordinates (mnt6753_init.cpp:153-155)
@@ -80,6 +81,9 @@ class MNT6753:
         self.Fr = Fp(FIELD_B_SMALL, self.device, "MNT6753.Fr")
         self.Fq = Fp(FIELD_A, self.device, "MNT6753.Fq")
         self.Fq3 = Fp3(self.Fq, FQ3_NON_RESIDUE, "MNT6753.Fq3")
+        # GT = Fq6 (the ate pairing's target, fp6_2over3.tcc)
+        self.Fq6 = Fp6_2over3(self.Fq3, FQ3_NON_RESIDUE, "MNT6753.Fq6")
+        self.GT = self.Fq6
         q = self.Fq.p
         self.G1 = Curve(self.Fq, self.Fq.const(G1_COEFF_A), self.Fq.const(G1_COEFF_B),
                         self.device, "MNT6753.G1", G1_ADD_KERNEL, G1_DBL_KERNEL)
@@ -101,6 +105,17 @@ class MNT6753:
         return (torch.stack([Fq.const(c) for c in (G2_ONE_X0, G2_ONE_X1, G2_ONE_X2)]),
                 torch.stack([Fq.const(c) for c in (G2_ONE_Y0, G2_ONE_Y1, G2_ONE_Y2)]),
                 torch.stack([Fq.const(1)] + [Fq.const(0)] * 2))
+
+    def g2_mul_by_q(self, P):
+        """The Frobenius endomorphism on G2 (mnt6753_g2.cpp mul_by_q,
+        mnt6753_init.cpp:146-147): (tx X^q, ty Y^q, Z^q) for a projective
+        batch P, the twist multipliers from ops.frobenius."""
+        tx, ty = mnt6753_twist_mul_by_q()
+        E, Fq = self.Fq3, self.Fq
+        X, Y, Z = P
+        return (E.scale_prime_const(E.frobenius_map(X, 1), Fq.const(tx)),
+                E.scale_prime_const(E.frobenius_map(Y, 1), Fq.const(ty)),
+                E.frobenius_map(Z, 1))
 
 
 def get(device="cuda") -> MNT6753:

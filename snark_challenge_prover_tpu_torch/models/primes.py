@@ -11,6 +11,7 @@ against the reference's published decimal constants in tests.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 # r(MNT4753) == q(MNT6753): 2-adicity s=30 (mnt4753_init.cpp:65)
 P_MNT4_R = int(
@@ -27,6 +28,12 @@ P_MNT4_Q = int(
 
 R_BITS = 768  # the wire format's Montgomery R = 2^768 (12x64-bit limbs,
               # libff fp.tcc mul_reduce for n=12); limb width is free
+
+
+@lru_cache(maxsize=None)
+def _r_inverse(p: int) -> int:
+    """R^-1 mod p, once a modulus."""
+    return pow(1 << R_BITS, -1, p)
 
 
 def _two_adicity(n: int):
@@ -118,7 +125,7 @@ class PrimeSpec:
         return (x % self.p) * self.R % self.p
 
     def from_mont(self, x: int) -> int:
-        return x * pow(self.R, -1, self.p) % self.p
+        return x * _r_inverse(self.p) % self.p
 
 
 # Field specs as used by each curve (generator/nqr from mnt4753_init.cpp:68-70,

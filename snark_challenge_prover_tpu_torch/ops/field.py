@@ -143,11 +143,12 @@ class Fp:
     # ---- exponentiation / inversion --------------------------------------
     def pow_int(self, a, e: int):
         """a^e for a Python-int exponent e >= 0: square and multiply,
-        most significant bit first, every product a ``mul``."""
+        most significant bit first, every product a ``mul`` (the
+        extensions reuse it over their own ``mul`` / ``sqr``)."""
         if e < 0:
             raise ValueError("pow_int takes an exponent >= 0")
         if e == 0:
-            return self.ones(a.shape[1:])
+            return self.ones(a.shape[self.elem_ndim:])
         out = a
         for bit in bin(e)[3:]:
             out = self.sqr(out)

@@ -1,8 +1,11 @@
 """Extension fields over a 753-bit base field: Fq2 = Fq[u] / (u^2 - nr)
-and Fq3 = Fq[u] / (u^3 - nr).
+and Fq3 = Fq[u] / (u^3 - nr), and the pairing targets over them, Fq4 =
+Fq2[v] / (v^2 - u) (MNT4753's GT) and Fq6 = Fq3[v] / (v^2 - u) (MNT6753's).
 
-Element layout: the component axis leads the base field's word axis, so a
-vector of N elements is ``int32[deg, 24, N]``.  The non-residue is small
+Counterpart of the JAX package's ``ops/towers.py``.  Element layout: the
+component axes lead the base field's word axis, so a vector of N elements
+is ``int32[deg, 24, N]``, and ``int32[2, 2, 24, N]`` / ``int32[2, 3, 24,
+N]`` for Fq4 / Fq6.  The non-residue is small
 (13 for MNT4753's Fq2, 11 for MNT6753's Fq3), so multiplying by it is a
 small-integer scaling instead of a Montgomery product.  Fq2 multiplies by
 3-product Karatsuba (libff fp2.tcc:81-104) and squares by the complex
@@ -10,47 +13,70 @@ method (fp2.tcc:106-135); Fq3 multiplies by the 6-product schedule of
 fp3.tcc.  The independent base-field products of one call are stacked
 into a single batched ``Fp.mul``.  Inversion goes through the norm to the
 base field (fp2.tcc:137-153, fp3.tcc invert), whose ``inv`` / ``batch_inv``
-do the one exponentiation.
+do the one exponentiation.  Fq4 and Fq6 take Fq2's quadratic formulas over
+their base extension (fp4.tcc, fp6_2over3.tcc), with the non-residue v^2 =
+u acting by a rotation of the components; their independent products
+stack through both levels into one ``Fp.mul``.  The Frobenius maps scale
+components by the exact constants of ``ops/frobenius.py``, one batched
+constant product each; ``unitary_inverse`` is the conjugation v -> -v.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import frobenius
 from .field import Fp
 
 
 class _Ext:
-    """What the extensions share: components stacked on axis 0, the
-    componentwise ring operations, predicates and constructors."""
+    """What the extensions share: components stacked on axis 0 (over the
+    base's own axes when the base is itself an extension), the
+    componentwise ring operations, predicates, constructors, powers and the
+    Frobenius constants."""
 
     deg: int
-    elem_ndim = 2  # leading axes of one element: (deg, 24)
 
-    def __init__(self, base: Fp, non_residue: int, name: str | None = None):
+    def __init__(self, base, non_residue: int, name: str | None = None):
         self.base = base
         self.nr = non_residue
         self.name = name or type(self).__name__
         self.device = base.device
+        # leading axes of one element: (deg, 24), (2, deg', 24) over an extension
+        self.elem_ndim = base.elem_ndim + 1
 
     def plain(self):
         """The same field over the base field's plain version."""
         return type(self)(self.base.plain(), self.nr, self.name)
 
+    @property
+    def prime_field(self) -> Fp:
+        """The bottom Fp of the tower."""
+        f = self.base
+        while isinstance(f, _Ext):
+            f = f.base
+        return f
+
     def _componentwise(self, fn, *xs):
-        # base-field code wants the word axis first: swap it with the
-        # component axis (views), run once over all components, swap back
-        return fn(*(x.transpose(0, 1) for x in xs)).transpose(0, 1)
+        # prime-field code wants the word axis first: fold the component
+        # axes into one, swap it with the word axis (views), run once over
+        # all components, swap back and unfold
+        lead = xs[0].shape[: self.elem_ndim - 1]
+        flat = [x.reshape((-1,) + x.shape[self.elem_ndim - 1:]).transpose(0, 1) for x in xs]
+        out = fn(*flat).transpose(0, 1)
+        return out.reshape(lead + out.shape[1:])
 
     def _stacked_mul(self, xs, ys):
-        """[x_i * y_i] through one batched base-field product."""
-        V = self.base.mul(torch.stack(xs, dim=1), torch.stack(ys, dim=1))
-        return V.unbind(dim=1)
+        """[x_i * y_i] through one batched base product (over an extension
+        base, its own products stack too: one ``Fp.mul`` in all)."""
+        k = self.base.elem_ndim
+        V = self.base.mul(torch.stack(xs, dim=k), torch.stack(ys, dim=k))
+        return V.unbind(dim=k)
 
     # ---- constructors -------------------------------------------------
     def zeros(self, batch_shape):
-        return torch.zeros((self.deg, 24) + tuple(batch_shape), dtype=torch.int32,
-                           device=self.device)
+        return torch.zeros((self.deg,) + tuple(self.base.zeros(batch_shape).shape),
+                           dtype=torch.int32, device=self.device)
 
     def ones(self, batch_shape):
         zero = self.base.zeros(batch_shape)
@@ -58,13 +84,13 @@ class _Ext:
 
     # ---- ring ops -------------------------------------------------------
     def add(self, a, b):
-        return self._componentwise(self.base.add, a, b)
+        return self._componentwise(self.prime_field.add, a, b)
 
     def sub(self, a, b):
-        return self._componentwise(self.base.sub, a, b)
+        return self._componentwise(self.prime_field.sub, a, b)
 
     def neg(self, a):
-        return self._componentwise(self.base.neg, a)
+        return self._componentwise(self.prime_field.neg, a)
 
     def double(self, a):
         return self.add(a, a)
@@ -77,6 +103,18 @@ class _Ext:
         """a times a base-field element s (broadcast over the components),
         one batched base product."""
         return torch.stack(self._stacked_mul(list(a), [s] * self.deg))
+
+    def scale_prime_const(self, a, c):
+        """Every (nested) component times a prime-field Montgomery constant
+        c of shape (24,): one batched constant product."""
+        F = self.prime_field
+        return self._componentwise(lambda x: F.mul_const(x, c), a)
+
+    def _frob_const(self, c_int: int):
+        """A Frobenius coefficient as a prime-field Montgomery constant."""
+        return self.prime_field.const(c_int)
+
+    pow_int = Fp.pow_int  # square and multiply over the extension's mul / sqr
 
     def inv(self, a):
         """a^-1 = c / norm(a), where ``_adjugate`` gives the components c
@@ -92,13 +130,13 @@ class _Ext:
 
     # ---- predicates -----------------------------------------------------
     def is_zero(self, a):
-        return (a == 0).all(dim=0).all(dim=0)
+        return (a == 0).flatten(0, self.elem_ndim - 1).all(dim=0)
 
     def eq(self, a, b):
-        return (a == b).all(dim=0).all(dim=0)
+        return (a == b).flatten(0, self.elem_ndim - 1).all(dim=0)
 
     def select(self, mask, a, b):
-        return torch.where(mask[None, None], a, b)
+        return torch.where(mask[(None,) * self.elem_ndim], a, b)
 
 
 class Fp2(_Ext):
@@ -129,6 +167,14 @@ class Fp2(_Ext):
         s0, s1 = self._stacked_mul([a[0], a[1]], [a[0], a[1]])
         return [a[0], F.neg(a[1])], F.sub(s0, self.mul_nr(s1))
 
+    def frobenius_map(self, a, power: int):
+        """x -> x^(q^power) (fp2.tcc Frobenius_map): c1 times nr^((q - 1) / 2)
+        = -1 when power is odd."""
+        c = frobenius.fq2_frobenius_coeffs_c1(self.base.p, self.nr)[power % 2]
+        if c == 1:
+            return a
+        return torch.stack([a[0], self.base.mul_const(a[1], self._frob_const(c))])
+
 
 class Fp3(_Ext):
     deg = 3
@@ -156,3 +202,52 @@ class Fp3(_Ext):
         c = [F.sub(t0, self.mul_nr(t5)), F.sub(self.mul_nr(t2), t3), F.sub(t1, t4)]
         n0, n1, n2 = self._stacked_mul([a[0], a[2], a[1]], c)
         return c, F.add(n0, self.mul_nr(F.add(n1, n2)))
+
+    def frobenius_map(self, a, power: int):
+        """x -> x^(q^power) (fp3.tcc Frobenius_map): component m times
+        coeffs_c{m}[power % 3]."""
+        F = self.base
+        c1 = frobenius.fq3_frobenius_coeffs_c1(F.p, self.nr)[power % 3]
+        c2 = frobenius.fq3_frobenius_coeffs_c2(F.p, self.nr)[power % 3]
+        if c1 == 1 and c2 == 1:
+            return a
+        return torch.stack([a[0], F.mul_const(a[1], self._frob_const(c1)),
+                            F.mul_const(a[2], self._frob_const(c2))])
+
+
+class _GTTower(Fp2):
+    """A quadratic tower E[v] / (v^2 - u) over E = Fq2 or Fq3: Fq2's
+    Karatsuba and complex squaring over E, where multiplying by the
+    non-residue v^2 = u rotates E's components and scales the top one by
+    E's own non-residue."""
+
+    def mul_nr(self, x):
+        E = self.base
+        return torch.stack([E.mul_nr(x[-1])] + list(x[:-1]))
+
+    def frobenius_map(self, a, power: int):
+        """(c0^(q^power), coeff c1^(q^power)) with coeff = nr^(power (q - 1)
+        / (2 deg E)) (fp4.tcc / fp6_2over3.tcc Frobenius_map)."""
+        E = self.base
+        c = self._frobenius_coeffs(E.base.p, self.nr)[power % (2 * E.deg)]
+        a0, a1 = E.frobenius_map(a[0], power), E.frobenius_map(a[1], power)
+        if c != 1:
+            a1 = E.scale_prime_const(a1, self._frob_const(c))
+        return torch.stack([a0, a1])
+
+    def unitary_inverse(self, a):
+        """The conjugation v -> -v: the inverse on the norm-1 elements, where
+        reduced pairing values live (fp4.hpp unitary_inverse)."""
+        return torch.stack([a[0], self.base.neg(a[1])])
+
+
+class Fp4(_GTTower):
+    """Fq4 = Fq2[v] / (v^2 - u): MNT4753's GT (fp4.tcc)."""
+
+    _frobenius_coeffs = staticmethod(frobenius.fq4_frobenius_coeffs_c1)
+
+
+class Fp6_2over3(_GTTower):
+    """Fq6 = Fq3[v] / (v^2 - u): MNT6753's GT (fp6_2over3.tcc)."""
+
+    _frobenius_coeffs = staticmethod(frobenius.fq6_frobenius_coeffs_c1)

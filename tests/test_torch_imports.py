@@ -1,7 +1,9 @@
 """The port stands alone: importing any of its modules pulls in neither JAX
-nor the JAX package nor tools/, and its entry points run on the GPU by
-default, raising where there is none instead of using the CPU."""
+nor the JAX package nor tools/, no import in its sources names them, and its
+entry points run on the GPU by default, raising where there is none instead
+of using the CPU."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -36,7 +38,10 @@ def test_every_module_is_listed():
                  "reductions.uscs_to_ssp", "proof_systems.uscs_ppzksnark",
                  "proof_systems.tbcs_ppzksnark", "proof_systems.adsnark", "relations.tinyram",
                  "gadgets.protoboard", "gadgets.routing", "reductions.ram_to_r1cs",
-                 "proof_systems.ram_ppzksnark"):
+                 "proof_systems.ram_ppzksnark", "proof_systems.pairing",
+                 "gadgets.basic_gadgets", "gadgets.field_ext_gadgets", "gadgets.curve_gadgets",
+                 "gadgets.pairing_gadgets", "gadgets.verifier_gadget", "gadgets.knapsack",
+                 "proof_systems.pcd"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
@@ -56,6 +61,31 @@ def test_import_pulls_in_no_jax(module):
         [sys.executable, "-S", "-c", code], capture_output=True, text=True, timeout=120,
         env={"PYTHONPATH": ":".join(env_path), "PATH": "/usr/bin:/bin"}, cwd=str(REPO))
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _imported_names(tree):
+    """Every module that an import statement or a literal importlib call
+    in ``tree`` names, at any depth."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant)
+              and ast.unparse(node.func) in ("importlib.import_module", "import_module", "__import__")):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_source_names_nothing_of_jax(module):
+    """No import in the module's source, function bodies included (which
+    the import above does not run), names JAX, the JAX package or tools/."""
+    path = REPO.joinpath(*module.split("."))
+    path = path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+    names = list(_imported_names(ast.parse(path.read_text(), str(path))))
+    banned = ("jax", "jaxlib", "snark_challenge_prover_tpu", "tools")
+    bad = [n for n in names if n.split(".")[0] in banned]
+    assert not bad, bad
 
 
 def test_chip_smoke_imports_nothing_of_jax_and_fails_without_a_card():
