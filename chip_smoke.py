@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py [--sizes4 250,98304,1048576]
                           [--sizes6 24576,32768,819200]
-                          [--keygen4 524288] [--keygen6 32768] [--gm17-4 262144]
+                          [--keygen4 131072] [--keygen6 32768] [--gm17-4 65536]
                           [--pghr13-4 65536]
                           [--adsnark4 65536,16] [--adsnark6 32768,8]
                           [--bacs-gates 16384] [--ram4 65536]
-                          [--tbcs4 130048,1024,32,1024] [--tbcs6 16128,256,8,256]
-                          [--towers 4099] [--pcd 2] [--seed 1]
+                          [--tbcs4 31744,1024,32,1024] [--tbcs6 16128,256,8,256]
+                          [--towers 4099] [--pcd 2] [--mp-pcd 1] [--ram-zksnark 2]
+                          [--fixnum 1048576] [--pedersen 32] [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
 MNT4753 and for MNT6753 in turn: checks the curve's GT tower (``towers``:
@@ -36,7 +37,7 @@ and in bulk.
 
 Then each curve generates its keys (``keygen``: the command line's
 ``generate_for_curve`` on the card, MNT4753 at d + 1 = ``--keygen4``,
-2^19, half the reference's default, MNT6753 at ``--keygen6``, the
+2^17, an eighth of the reference's default, MNT6753 at ``--keygen6``, the
 reference's default): its launch counts,
 phase times and peak memory; its queries checked against exact host
 multiplication (the first and last entries, 256 random ones and every
@@ -61,7 +62,7 @@ verifier; the keys and the proof through ``io.keys``, timed; and every
 kernel compared and timed at the blinded prove's lane counts.
 
 Then the ``gm17`` phase (GM17 on the R1CS -> SAP reduction: on MNT4753 on
-an example of its own at ``--gm17-4``, 2^18, a SAP domain of 2^19; on
+an example of its own at ``--gm17-4``, 2^16, a SAP domain of 2^17; on
 MNT6753 on the key generation's example, a SAP domain of 2^16) and the
 ``pghr13`` phase (on MNT4753 on an example of its own at ``--pghr13-4``,
 2^16; on MNT6753 on the key generation's), then the ``adsnark`` phase (ADSNARK on an example of
@@ -89,8 +90,8 @@ rejected, and the kernels at its shapes.  Last, on each curve, the
 ``tbcs`` phase: the TBCS ppzkSNARK (the USCS ppzkSNARK on the circuit's
 USCS -> SSP lowering) on a circuit drawn from the seed with every gate
 type and all outputs false, sized so its USCS fills a radix-2 domain
-(``--tbcs4``: 130048 gates, 1024 inputs of which 32 primary and 1024
-outputs, 2^18 constraints and 2^17 variables on MNT4753; ``--tbcs6``:
+(``--tbcs4``: 31744 gates, 1024 inputs of which 32 primary and 1024
+outputs, 2^16 constraints and 32768 variables on MNT4753; ``--tbcs6``:
 16128 gates, 256 inputs, 8 primary, 256 outputs, 2^15 constraints on
 MNT6753): the generator and the prover with their launch counts, phase
 times and peak memory; the four query families and the verification key
@@ -99,6 +100,28 @@ Lagrange basis); the proof against the host's scalars with no MSM; the
 witness map with the prover's d by its identity at t; the verdicts (a
 flipped primary bit); and the kernels at the prove's lane counts and at
 the generator's new ones.
+
+After both curves, the ``pcd`` chain (``--pcd``) and four later phases.
+``mp_pcd`` (``--mp-pcd``): ``MPPCDProver`` at arity 0 on MNT4753 over two
+counter predicates (mult 1 and 2): its keygen, a prove under each key, the
+commitment against knapsack digests recomputed here, each key and proof
+against exact integers, ``verify`` accepting both and rejecting a wrong
+message and the other key; then the recursive step on MNT6753 as the JAX
+package's tests drive it: ``MPPCDStepCircuit`` at arity 1 over two MNT4753
+keys made on the card (213295 constraints, a mixed-radix QAP of 409600), its
+four fill verdicts, ``groth16_full.proving_key`` and ``prover`` on the card,
+the key and the proof against exact integers, the verdicts.
+``ram_zksnark`` (``--ram-zksnark`` tape words): the RAM zkSNARK on MNT4753
+for a program drawn from the seed (w = k = 16, 32 words of memory), one PCD
+proof a machine step up to acceptance (a QAP of 2^14 a step): the states
+chained and equal to the simulator's, every step's proof verified on the
+pool, the key and the first and last proofs against exact integers, the
+final state accepted and two tampered forms rejected.  ``fixnum``
+(``--fixnum`` n): ``cli_fixnum.main`` on a stream of two chunks of n, its
+output byte for byte the Python integers' Montgomery products.
+``pedersen`` (``--pedersen`` messages): ``hash_batch_device`` over the
+2048-point coefficient strip, every digest against the host hash, and a
+Schnorr signature.  After each, the kernels at its lane counts.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -133,7 +156,7 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from snark_challenge_prover_tpu_torch import cli  # noqa: E402
+from snark_challenge_prover_tpu_torch import cli, cli_fixnum, pedersen  # noqa: E402
 from snark_challenge_prover_tpu_torch.cli_generate_parameters import generate_for_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.host.curves import host_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.io import keys as key_io  # noqa: E402
@@ -144,8 +167,12 @@ from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa
 from snark_challenge_prover_tpu_torch.ops.fft import (  # noqa: E402
     get_domain_of_min_size, get_evaluation_domain)
 from snark_challenge_prover_tpu_torch.ops.field import canonical_words  # noqa: E402
+from snark_challenge_prover_tpu_torch.gadgets.knapsack import knapsack_coefficients  # noqa: E402
+from snark_challenge_prover_tpu_torch.gadgets.protoboard import collector_paused  # noqa: E402
+from snark_challenge_prover_tpu_torch.gadgets.verifier_gadget import vk_field_elements  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems import (  # noqa: E402
-    adsnark, bacs_ppzksnark, bg, gm17, groth16_full, pcd, pghr13, ram_ppzksnark, tbcs_ppzksnark)
+    adsnark, bacs_ppzksnark, bg, gm17, groth16_full, mp_pcd, pcd, pghr13, ram_ppzksnark,
+    ram_zksnark, tbcs_ppzksnark)
 from snark_challenge_prover_tpu_torch.proof_systems.ate_pairing import AtePairing, HostGT  # noqa: E402
 from snark_challenge_prover_tpu_torch.proof_systems.groth16 import (  # noqa: E402
     ChallengeProver, _g1_proj_to_host, _g2_proj_to_host, compute_h)
@@ -235,10 +262,11 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def path_run(model, hc, what: str, fn):
+def path_run(model, hc, what: str, fn, kernels=None):
     """``fn()`` with the launch counts set to 0 just before and read just
     after, and the peak memory reset: (its result, seconds, launches, lanes,
-    peak bytes).  Raises if a kernel of the curve's path was never launched."""
+    peak bytes).  Raises if a kernel of the path (``kernels``, by default
+    every kernel of the curve's prove) was never launched."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cuda_field.launches.clear()
@@ -249,7 +277,7 @@ def path_run(model, hc, what: str, fn):
     secs = time.perf_counter() - t0
     launches = dict(cuda_field.launches)
     lanes = {k: dict(v) for k, v in cuda_field.launch_lanes.items()}
-    missing = [k for k in path_kernels(model) if launches.get(k, 0) <= 0]
+    missing = [k for k in kernels or path_kernels(model) if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {hc.name} {what} path: {missing}")
     return out, secs, launches, lanes, torch.cuda.max_memory_allocated()
@@ -546,7 +574,7 @@ def check_kernels_at_path_shapes(model, g1_strip, g2_strip, rng, path_lanes, err
     inputs; its time is the sum over the chunks.  ``done`` holds the rows
     of the shapes compared on the curve (``compare_at``)."""
     report, rows = {}, []
-    for name in path_kernels(model):
+    for name in (k for k in path_kernels(model) if k in path_lanes):
         curve = model.G1 if name.endswith("_fp") else model.G2
         if name.startswith("ec_dbl"):
             dbl_rows = check_dbl_at_path_shapes(model, g1_strip, g2_strip, name, path_lanes[name],
@@ -585,7 +613,7 @@ def check_kernels_at_new_shapes(model, g1_strip, g2_strip, rng, lanes, errs, don
     kernel -> {shape: launches}) that no earlier check of the curve compared
     (``done``)."""
     rows = []
-    for name in path_kernels(model):
+    for name in (k for k in path_kernels(model) if k in lanes):
         seen = lanes[name]
         for shape in sorted(largest_and_commonest(name, seen)):
             if (name, shape) not in done:
@@ -2153,22 +2181,22 @@ RAM_TAPE_WORDS = 16  # the public tape of the ram phase's program
 RAM_ALU_OPS = ("mov", "cmov", "add", "sub", "and", "or", "xor", "not", "cmpe", "cmpa", "cmpae")
 
 
-def ram_program(seed: int, w: int = 16, k: int = 16):
+def ram_program(seed: int, w: int = 16, k: int = 16, tape_words: int = RAM_TAPE_WORDS):
     """A TinyRAM program and tape drawn from the seed, on a (w, k) machine,
-    with only the opcodes of ``CIRCUIT_OPS``: it loads each of the 16 tape
-    words (boot-stored at addresses 0..15) in turn, between random ALU
-    instructions over random registers and immediates, stores to and loads
-    from random addresses, and takes forward jumps (jmp, cjmp, cnjmp) over
-    one instruction; then xors every register into r0, subtracts the
-    result it reached on this tape and answers r0, so it accepts this tape.
-    Returns (program, tape)."""
+    with only the opcodes of ``CIRCUIT_OPS``: it loads each of the
+    ``tape_words`` tape words (boot-stored at addresses 0, 1, ...) in turn,
+    between random ALU instructions over random registers and immediates,
+    stores to and loads from random addresses below 2 * RAM_TAPE_WORDS, and
+    takes forward jumps (jmp, cjmp, cnjmp) over one instruction; then xors
+    every register into r0, subtracts the result it reached on this tape
+    and answers r0, so it accepts this tape.  Returns (program, tape)."""
     rng = random.Random(seed)
     ap = TinyRAMArchParams(w, k)
-    tape = [rng.randrange(1 << w) for _ in range(RAM_TAPE_WORDS)]
+    tape = [rng.randrange(1 << w) for _ in range(tape_words)]
     prog = TinyRAMProgram(ap, [])
     reg = lambda: rng.randrange(k)
     operand = lambda: (reg(), False) if rng.randrange(2) else (rng.randrange(1 << w), True)
-    for i in range(RAM_TAPE_WORDS):
+    for i in range(tape_words):
         prog.add("loadw", des=reg(), arg2=i)
         for _ in range(2):
             a2, imm = operand()
@@ -2543,14 +2571,14 @@ def tbcs_phase(model, hc, sizes, seed: int, pool):
 PCD_LOCAL = (3, 7, 5)  # the increments of steps 0, 1 and 2 (step k > 2 adds k + 2)
 
 
-def counter_predicate(p: int):
-    """out = in + local over [1 | out type, out value | arity | in type, in
-    value | local]; primary = the outgoing message (the JAX package's
-    tests/test_pcd.py:32-48)."""
+def counter_predicate(p: int, mult: int = 1):
+    """out = mult * in + local over [1 | out type, out value | arity | in
+    type, in value | local]; primary = the outgoing message (the JAX
+    package's tests/test_pcd.py:32-48 and tests/test_mp_pcd.py:32-51)."""
     cs = R1CSConstraintSystem(p, primary_input_size=2, auxiliary_input_size=4)
-    cs.add_constraint(R1CSConstraint(LinearCombination.of_var(5) + LinearCombination.of_var(6),
+    cs.add_constraint(R1CSConstraint(LinearCombination.of_var(5, mult) + LinearCombination.of_var(6),
                                      LinearCombination.of_var(0), LinearCombination.of_var(2)))
-    return pcd.CompliancePredicate(name=1, type=1, constraint_system=cs,
+    return pcd.CompliancePredicate(name=mult, type=1, constraint_system=cs,
                                    outgoing_message_payload_length=1, max_arity=1,
                                    incoming_message_payload_lengths=[1], local_data_length=1,
                                    witness_length=0)
@@ -2585,8 +2613,46 @@ def groth16_key_checks(model, hc, pk, vk, keys: dict, n: int, rng, pool) -> dict
                (vk.alpha_g1_beta_g2, engine.GT.pow(engine.reduced_pairing(g1b, hc.g2_gen),
                                                    keys["alpha"] * keys["beta"] % r)))
     if any(got != want for got, want in singles):
-        raise AssertionError(f"{hc.name} pcd: the single points or the verification key differ")
+        raise AssertionError(f"{hc.name}: the single points or the verification key differ")
     return checked
+
+
+def replay_groth16_key(model, hc, cs, kg_seed: int, pool, skip: int = 0) -> dict:
+    """What ``groth16_full.proving_key`` drew from ``random.Random(kg_seed)``
+    (after ``skip`` draws of earlier keys: t, alpha, beta, delta, then the G1
+    base's scalar) and the QAP of its (swapped) constraint system ``cs`` at t
+    by this script's own Lagrange basis (``qap_at``): the ``keys`` of
+    ``groth16_key_checks`` and ``check_groth16_proof`` but the witness."""
+    rng = random.Random(kg_seed)
+    rr = model.Fr.p
+    for _ in range(skip):
+        rng.randrange(1, rr)
+    t, alpha, beta, delta, g1s = (rng.randrange(1, rr) for _ in range(5))
+    zt, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
+    return {"t": t, "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": g1s, "Zt": zt,
+            "At": At, "Bt": Bt, "Ct": Ct, "nin": cs.primary_input_size}
+
+
+def check_groth16_proof(model, hc, keys: dict, w, blinding, proof, what: str, pool):
+    """A ``groth16_full`` proof against the host's scalars with no MSM
+    (``blinded_scalars``) for the witness w = [1] + primary + auxiliary under
+    the replayed key ``keys`` and the prover's (r, s) ``blinding``.  Raises on
+    a difference."""
+    rr = model.Fr.p
+    a, b, c = blinded_scalars(model, keys, qap_at_t(model, {**keys, "w": w}, pool), *blinding)
+    combG, g1s = host_comb(hc.g1, hc.g1_gen), keys["g1_scalar"]
+    want = (combG.mul(a * g1s % rr), hc.g2.mul(b, hc.g2_gen), combG.mul(c * g1s % rr))
+    if (proof.g_A, proof.g_B, proof.g_C) != want:
+        raise AssertionError(f"{hc.name} {what}: the proof differs from the host's scalars")
+
+
+def blinding_of(pr_seed: int, rr: int, step: int = 0) -> tuple:
+    """The (r, s) of the ``step``-th ``groth16_full.prover`` call on one
+    ``random.Random(pr_seed)``: each call draws r, then s."""
+    draws = random.Random(pr_seed)
+    for _ in range(2 * step):
+        draws.randrange(rr)
+    return draws.randrange(rr), draws.randrange(rr)
 
 
 def pcd_step(ctx: dict, k: int, pred, prev, seed: int, pool) -> dict:
@@ -2634,26 +2700,16 @@ def pcd_step(ctx: dict, k: int, pred, prev, seed: int, pool) -> dict:
                              None if prev is None else [inner_proof], prof))
 
     t0 = time.perf_counter()
-    rng = random.Random(kg_seed)
-    t, alpha, beta, delta, g1s = (rng.randrange(1, rr) for _ in range(5))
-    zt, At, Bt, Ct = qap_at(model, hc, cs, t, pool)
-    keys = {"t": t, "alpha": alpha, "beta": beta, "delta": delta, "g1_scalar": g1s, "Zt": zt,
-            "At": At, "Bt": Bt, "Ct": Ct, "nin": nin,
-            "w": [1] + circ.pb.primary_input() + circ.pb.auxiliary_input()}
+    keys = replay_groth16_key(model, hc, cs, kg_seed, pool)
     t_replay = time.perf_counter() - t0
     t0 = time.perf_counter()
     checked = groth16_key_checks(model, hc, kp.pk, kp.vk, keys, n, random.Random(seed + k), pool)
     t_checks = time.perf_counter() - t0
     t0 = time.perf_counter()
-    blind = random.Random(pr_seed)
-    r, s_ = blind.randrange(rr), blind.randrange(rr)
-    a, b, c = blinded_scalars(model, keys, qap_at_t(model, keys, pool), r, s_)
-    combG = host_comb(hc.g1, hc.g1_gen)
-    want = (combG.mul(a * g1s % rr), hc.g2.mul(b, hc.g2_gen), combG.mul(c * g1s % rr))
-    if (proof.g_A, proof.g_B, proof.g_C) != want:
-        raise AssertionError(f"{hc.name} pcd step {k}: the proof differs from the host's scalars")
+    check_groth16_proof(model, hc, keys, [1] + circ.pb.primary_input() + circ.pb.auxiliary_input(),
+                        blinding_of(pr_seed, rr), proof, f"pcd step {k}", pool)
     t_expected = time.perf_counter() - t0
-    del At, Bt, Ct, keys
+    del keys
 
     t0 = time.perf_counter()
     wrong_msg = [1, (out.payload[0] + 1) % rr]
@@ -2696,13 +2752,7 @@ def pcd_phase(contexts: dict, steps: int, seed: int, errs: dict, pool) -> list:
         ctx = contexts[curve]
         model = ctx["model"]
         step = pcd_step(ctx, k, counter_predicate(model.Fr.p), prev, seed, pool)
-        torch.cuda.empty_cache()
-        args = (model, ctx["g1_strip"], ctx["g2_strip"], ctx["rng"])
-        report = check_kernels_at_path_shapes(*args, shape_picks(step["lanes"]), errs, ctx["done"],
-                                              "kernels_at_pcd_shapes")
-        check_kernels_at_new_shapes(*args, step["kg_lanes"], errs, ctx["done"],
-                                    "kernels_at_pcd_generator_shapes")
-        torch.cuda.empty_cache()
+        report = kernels_after(ctx, errs, "pcd", step["lanes"], step["kg_lanes"])
         out.append({"curve": curve, "step": k, "qap_domain": step["qap_domain"],
                     "launches": step["launches"], "report": report, "sha": step["sha"],
                     "message": step["out"].as_assignment()})
@@ -2711,6 +2761,474 @@ def pcd_phase(contexts: dict, steps: int, seed: int, errs: dict, pool) -> list:
          chain=[{k: s[k] for k in ("step", "curve", "qap_domain", "message", "sha")} for s in out],
          seconds=time.perf_counter() - t0)
     return out
+
+
+def kernels_after(ctx: dict, errs: dict, phase: str, lanes: dict, gen_lanes=None) -> dict:
+    """Every kernel a phase launched on ``ctx``'s curve against its plain
+    version, and timed, at the phase's prove's lane counts
+    (``check_kernels_at_path_shapes``) and at its generator's that no earlier
+    check of the curve compared: the report."""
+    torch.cuda.empty_cache()
+    args = (ctx["model"], ctx["g1_strip"], ctx["g2_strip"], ctx["rng"])
+    report = check_kernels_at_path_shapes(*args, shape_picks(lanes), errs, ctx["done"],
+                                          f"kernels_at_{phase}_shapes")
+    if gen_lanes:
+        check_kernels_at_new_shapes(*args, gen_lanes, errs, ctx["done"],
+                                    f"kernels_at_{phase}_generator_shapes")
+    torch.cuda.empty_cache()
+    return report
+
+
+def merged_counts(*runs) -> dict:
+    """Launch or lane counts of several runs of one path, summed."""
+    out = {}
+    for run in runs:
+        for name, v in run.items():
+            if isinstance(v, dict):
+                into = out.setdefault(name, {})
+                for shape, count in v.items():
+                    into[shape] = into.get(shape, 0) + count
+            else:
+                out[name] = out.get(name, 0) + v
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase: mp_pcd (multi-predicate PCD)
+# --------------------------------------------------------------------------
+MP_IN, MP_LOCAL = 5, 3  # the base case's incoming value and local increment
+
+
+def knapsack_digest(p: int, elems) -> int:
+    """The knapsack hash of field elements, recomputed here: the sum mod p
+    of the coefficients at the set bits of their p.bit_length()-bit
+    little-endian concatenation (``gadgets/knapsack.py``'s coefficients)."""
+    n = p.bit_length()
+    coeffs = knapsack_coefficients(p, n * len(elems))
+    return sum(coeffs[j * n + i] for j, e in enumerate(elems) for i in range(n)
+               if (e % p) >> i & 1) % p
+
+
+def mp_verify(args) -> bool:
+    """``MPPCDProver.verify`` on a pool process, on a key pair without its
+    proving keys and circuits."""
+    curve, kp, which, message, proof, num_incoming = args
+    return mp_pcd.MPPCDProver(curve, "cpu").verify(kp, which, message, proof, num_incoming)
+
+
+def mp_base_case(ctx: dict, seed: int, pool) -> dict:
+    """``MPPCDProver`` at arity 0 on ``ctx``'s curve (MNT4753) over two
+    counter predicates (mult 1 and 2): its keygen, and one prove under each
+    key, each with the launch counts set to 0 just before and read just
+    after; the commitment and leaves against the knapsack digests of the
+    keys recomputed here; each key against exact multiplication of its
+    replayed secrets and each proof against the host's scalars; ``verify``
+    accepting both proofs and rejecting a wrong message and the other key."""
+    model, hc = ctx["model"], ctx["hc"]
+    rr = model.Fr.p
+    preds = [counter_predicate(rr, mult) for mult in (1, 2)]
+    prover = mp_pcd.MPPCDProver(hc.name, model.device)
+    kg_seed, pr_seed = seed + 400, seed + 410
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_kg, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "mp keygen", lambda: prover.keygen(preds, random.Random(kg_seed), profiler=kg_prof))
+    ihc = host_curve(mp_pcd.partner(hc.name))
+    q = ihc.g2.F.p
+    leaves = [knapsack_digest(q, vk_field_elements(ihc, vk, 2)) for vk in kp.vks]
+    if kp.leaves != leaves or kp.commitment != knapsack_digest(q, leaves):
+        raise AssertionError(f"{hc.name} mp: the commitment or its leaves differ from the host's")
+    incoming, ld = [pcd.R1CSPCDMessage(1, [MP_IN])], pcd.R1CSPCDLocalData([MP_LOCAL])
+    runs, checked, t_checks = [], [], 0.0
+    for j, pred in enumerate(preds):
+        out = pcd.R1CSPCDMessage(1, [(j + 1) * MP_IN + MP_LOCAL])
+        proof, t_prove, launches, lanes, peak = path_run(
+            model, hc, "mp prove",
+            lambda: prover.prove(kp, j, out, incoming, ld, [], random.Random(pr_seed + j),
+                                 profiler=prof))
+        t0 = time.perf_counter()
+        pk, circ = kp.pks[j], kp.circuits[j]
+        cs = pk.constraint_system
+        keys = replay_groth16_key(model, hc, cs, kg_seed, pool, skip=5 * j)
+        n = get_domain_of_min_size(model.Fr, cs.num_constraints + cs.primary_input_size + 1).n
+        checked.append(groth16_key_checks(model, hc, pk, kp.vks[j], keys, n,
+                                          random.Random(seed + 420 + j), pool))
+        check_groth16_proof(model, hc, keys, [1] + circ.pb.primary_input() + circ.pb.auxiliary_input(),
+                            blinding_of(pr_seed + j, rr), proof, f"mp prove {j}", pool)
+        t_checks += time.perf_counter() - t0
+        runs.append({"out": out, "proof": proof, "seconds": t_prove, "launches": launches,
+                     "lanes": lanes, "peak": peak, "primary": circ.pb.primary_input()})
+    t0 = time.perf_counter()
+    bare = replace(kp, pks=[None] * len(kp.pks), circuits=None)
+    wrong = [pool.submit(mp_verify, (hc.name, bare, which, msg, r["proof"], 1))
+             for j, r in enumerate(runs)
+             for which, msg in ((j, pcd.R1CSPCDMessage(1, [r["out"].payload[0] + 1])),
+                                (1 - j, r["out"]))]
+    t1 = time.perf_counter()
+    if not all(prover.verify(kp, j, r["out"], r["proof"], 1) for j, r in enumerate(runs)):
+        raise AssertionError(f"{hc.name} mp: verify rejects a proof of the card's")
+    t_verify = time.perf_counter() - t1
+    if any(w.result() for w in wrong):
+        raise AssertionError(f"{hc.name} mp: verify accepts a wrong message or the other key")
+    t_verdicts = time.perf_counter() - t0
+    emit_fields = {
+        "curve": hc.name, "arity": 0, "predicates": ["out = in + local", "out = 2 in + local"],
+        "constraints": [pk.constraint_system.num_constraints for pk in kp.pks],
+        "commitment_equal": True, "messages": [r["out"].as_assignment() for r in runs],
+        "public_inputs": [r["primary"] for r in runs], "queries_checked": checked,
+        "proofs_equal": True,
+        "proof_sha256": [hashlib.sha256(r["proof"].to_bytes(model)).hexdigest() for r in runs],
+        "verify": {"accepts": "both proofs under their keys",
+                   "rejects": ["value + 1 under each key", "each proof under the other key"]},
+        "seconds": {"keygen": t_kg, "keygen_phases": dict(kg_prof.cumulative),
+                    "prove": [r["seconds"] for r in runs], "prove_phases": dict(prof.cumulative),
+                    "verify": t_verify, "verdicts": t_verdicts},
+        "host_seconds": {"key_and_proof_checks": t_checks},
+        "peak_device_bytes": {"keygen": kg_peak, "prove": max(r["peak"] for r in runs)},
+        "launches": {"keygen": kg_launches, "prove": [r["launches"] for r in runs]}}
+    return {"fields": emit_fields, "launches": merged_counts(*(r["launches"] for r in runs)),
+            "lanes": merged_counts(*(r["lanes"] for r in runs)), "kg_lanes": kg_lanes}
+
+
+def mp_recursive_step(ctx: dict, inner_ctx: dict, seed: int, pool) -> dict:
+    """The recursive step as the JAX package's tests/test_mp_pcd.py:54-110
+    drives it, on ``ctx``'s curve (MNT6753): two keys of the partner curve
+    (``groth16_full.generator`` on the card, the (5, 2) field-input example,
+    two seeds) and a proof under the first; ``MPPCDStepCircuit`` at arity 1
+    with the depth-1 commitment of that set; the four fill verdicts; then
+    ``groth16_full.proving_key`` and ``prover`` on the card (launch counts
+    set to 0 just before each and read just after), the key against exact
+    multiplication of the replayed secrets, the proof against the host's
+    scalars, ``verifier_strong_IC`` on the step's input and a changed one."""
+    model, hc = ctx["model"], ctx["hc"]
+    imodel, ihc = inner_ctx["model"], inner_ctx["hc"]
+    rr = model.Fr.p
+    t0 = time.perf_counter()
+    ex = generate_r1cs_example_with_field_input(imodel.Fr.p, 5, 2, random.Random(seed + 430))
+    inner_kps = [groth16_full.generator(imodel, ex.constraint_system, random.Random(seed + s))
+                 for s in (431, 432)]
+    inner_proof = groth16_full.prover(imodel, inner_kps[0].pk, ex.primary_input,
+                                      ex.auxiliary_input, random.Random(seed + 433))
+    if not groth16_full.verifier_strong_IC(inner_kps[0].vk, ex.primary_input, inner_proof):
+        raise AssertionError(f"{ihc.name} mp: the inner proof does not verify")
+    root, leaves = mp_pcd.vk_set_commitment(ihc, [kp.vk for kp in inner_kps], 2)
+    t_inner = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with collector_paused():
+        circ = mp_pcd.MPPCDStepCircuit(hc.name, counter_predicate(rr), set_depth=1, arity=1)
+        cs = circ.pb.get_constraint_system()
+    t_circuit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    typ, val = ex.primary_input
+    incoming, ld = [pcd.R1CSPCDMessage(typ, [val])], pcd.R1CSPCDLocalData([7])
+    out = pcd.R1CSPCDMessage(typ, [(val + 7) % rr])
+    forged = groth16_full.Proof(ihc.g1.add(inner_proof.g_A, ihc.g1_gen), inner_proof.g_B,
+                                inner_proof.g_C)
+    vk0, vk1 = (kp.vk for kp in inner_kps)
+    fills = {what: circ.fill(out, incoming, ld, [], root, inner=[edge]) for what, edge in (
+        ("key 1 at slot 1", (vk1, inner_proof, 1, leaves)),
+        ("key 0 at slot 1", (vk0, inner_proof, 1, leaves)),
+        ("forged proof", (vk0, forged, 0, leaves)),
+        ("key 0 at slot 0", (vk0, inner_proof, 0, leaves)))}  # last: the circuit keeps it
+    if list(fills.values()) != [False, False, False, True]:
+        raise AssertionError(f"{hc.name} mp step: fill verdicts {fills}")
+    t_fills = time.perf_counter() - t0
+    primary, aux = circ.pb.primary_input(), circ.pb.auxiliary_input()
+
+    kg_seed, pr_seed = seed + 440, seed + 441
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    (pk, secrets), t_kg, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "mp step keygen",
+        lambda: groth16_full.proving_key(model, cs, random.Random(kg_seed), kg_prof))
+    vk = groth16_full.verification_key(pk, secrets)
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "mp step prove",
+        lambda: groth16_full.prover(model, pk, primary, aux, random.Random(pr_seed), profiler=prof))
+    cs = pk.constraint_system
+    domain = get_domain_of_min_size(model.Fr, cs.num_constraints + cs.primary_input_size + 1)
+
+    t0 = time.perf_counter()
+    keys = replay_groth16_key(model, hc, cs, kg_seed, pool)
+    t_replay = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = groth16_key_checks(model, hc, pk, vk, keys, domain.n, random.Random(seed + 442), pool)
+    t_checks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_groth16_proof(model, hc, keys, [1] + primary + aux, blinding_of(pr_seed, rr), proof,
+                        "mp step", pool)
+    t_expected = time.perf_counter() - t0
+    del keys
+
+    t0 = time.perf_counter()
+    changed = [primary[0], (primary[1] + 1) % rr] + primary[2:]
+    rejected = pool.submit(verdict, (groth16_full.verifier_strong_IC, vk, changed, proof))
+    t1 = time.perf_counter()
+    if not groth16_full.verifier_strong_IC(vk, primary, proof):
+        raise AssertionError(f"{hc.name} mp step: the verifier rejects the card's proof")
+    t_verify = time.perf_counter() - t1
+    if rejected.result():
+        raise AssertionError(f"{hc.name} mp step: the verifier accepts a changed input")
+    t_verdicts = time.perf_counter() - t0
+    emit_fields = {
+        "curve": hc.name, "inner": ihc.name, "arity": 1, "set_depth": 1,
+        "inner_keys": 2, "constraints": cs.num_constraints, "variables": cs.num_variables,
+        "qap_domain": domain.n, "qap_domain_kind": type(domain).__name__,
+        "public_input": primary, "fill": fills, "queries_checked": checked,
+        "proof_sha256": hashlib.sha256(proof.to_bytes(model)).hexdigest(), "proof_equal": True,
+        "verifier": {"accepts": primary, "rejects": [changed]},
+        "seconds": {"keygen": t_kg, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                    "prove_phases": dict(prof.cumulative), "verify": t_verify,
+                    "verdicts": t_verdicts},
+        "host_seconds": {"inner_keys_and_proof": t_inner, "step_circuit": t_circuit,
+                         "fills": t_fills, "replay": t_replay, "query_checks": t_checks,
+                         "expected_proof": t_expected},
+        "peak_device_bytes": {"keygen": kg_peak, "prove": peak},
+        "launches": {"keygen": kg_launches, "prove": launches}}
+    return {"fields": emit_fields, "launches": launches, "lanes": lanes, "kg_lanes": kg_lanes,
+            "qap_domain": domain.n}
+
+
+def mp_pcd_phase(contexts: dict, seed: int, errs: dict, pool) -> list:
+    """The base case on MNT4753 (``mp_base_case``) and the recursive step on
+    MNT6753 (``mp_recursive_step``), each followed by the kernels at its
+    shapes; one ``mp_pcd`` line.  Returns the kernel entries."""
+    t0 = time.perf_counter()
+    base = mp_base_case(contexts["MNT4753"], seed, pool)
+    base_report = kernels_after(contexts["MNT4753"], errs, "mp_base", base["lanes"],
+                                base["kg_lanes"])
+    step = mp_recursive_step(contexts["MNT6753"], contexts["MNT4753"], seed, pool)
+    step_report = kernels_after(contexts["MNT6753"], errs, "mp_step", step["lanes"],
+                                step["kg_lanes"])
+    emit("mp_pcd", base=base["fields"], step=step["fields"], lanes={
+        "base": top_lanes(base["lanes"]), "step": top_lanes(step["lanes"])},
+         seconds=time.perf_counter() - t0)
+    return [{"curve": "MNT4753", "size": {"part": "base", "arity": 0},
+             "launches": base["launches"], "report": base_report},
+            {"curve": "MNT6753", "size": {"part": "step", "arity": 1,
+                                          "qap_domain": step["qap_domain"]},
+             "launches": step["launches"], "report": step_report}]
+
+
+# --------------------------------------------------------------------------
+# phase: ram_zksnark (the RAM zkSNARK: one PCD proof a machine step)
+# --------------------------------------------------------------------------
+RAM_ZK_DEPTH = 5  # address bits of the ram_zksnark phase's memory: 32 words
+
+
+def sp_pcd_verify(args) -> bool:
+    """``SPPCDProver.verify`` on a pool process, on a key pair of the
+    verification key and the predicate without its constraints."""
+    curve, vk, pred, message, proof = args
+    return pcd.SPPCDProver(curve, "cpu").verify(pcd.SPPCDKeypair(None, vk, pred), message, proof)
+
+
+def ram_zksnark_phase(ctx: dict, tape_words: int, seed: int, errs: dict, pool) -> list:
+    """The RAM zkSNARK on ``ctx``'s curve (MNT4753) for a program and tape
+    drawn from the seed (``ram_program``, w = k = 16, ``tape_words`` tape
+    words, memory of 2^RAM_ZK_DEPTH words), T its steps to acceptance by
+    ``simulate``: ``ram_zksnark.generator`` (arity 0) and ``prover`` over all
+    T steps, each with the launch counts set to 0 just before and read just
+    after; each step's incoming state the previous step's outgoing one (the
+    memory roots chain) and its pc, registers and flag the simulator's; every
+    step's proof through ``SPPCDProver.verify`` on the pool; the key against
+    exact multiplication of the replayed secrets, the first and last steps'
+    proofs against the host's scalars; ``verifier`` accepting the final
+    state and rejecting it with its root + 1 and with has_accepted 0."""
+    model, hc = ctx["model"], ctx["hc"]
+    rr = model.Fr.p
+    t0 = time.perf_counter()
+    program, tape = ram_program(seed, tape_words=tape_words)
+    accepted, _, trace = simulate(program, tape, max_steps=1 << 12, init_mem=dict(enumerate(tape)))
+    if not accepted:
+        raise AssertionError(f"{hc.name} ram_zksnark: the program does not accept its tape")
+    T = len(trace)
+    t_draw = time.perf_counter() - t0
+    kg_seed, pr_seed = seed + 500, seed + 501
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    kp, t_kg, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "ram_zksnark keygen",
+        lambda: ram_zksnark.generator(program, RAM_ZK_DEPTH, random.Random(kg_seed), hc.name,
+                                      device=model.device, profiler=kg_prof))
+    spk = kp.pcd_kp
+    circ, cs = spk.circuit, spk.pk.constraint_system
+    bare_pred = replace(spk.predicate, constraint_system=R1CSConstraintSystem(
+        cs.p, primary_input_size=spk.predicate.constraint_system.primary_input_size))
+    steps, verdicts = [], []
+
+    def on_step(k, s_in, s_out, proof):
+        msg = pcd.R1CSPCDMessage(1, s_out.payload())
+        verdicts.append(pool.submit(sp_pcd_verify, (hc.name, spk.vk, bare_pred, msg, proof)))
+        w = [1] + circ.pb.primary_input() + circ.pb.auxiliary_input() if k in (0, T - 1) else None
+        steps.append((s_in, s_out, proof, w))
+
+    (final, last), t_prove, launches, lanes, peak = path_run(
+        model, hc, "ram_zksnark prove",
+        lambda: ram_zksnark.prover(kp, tape, T, random.Random(pr_seed), prof, on_step))
+    t0 = time.perf_counter()
+    for k, ((s_in, s_out, _, _), row) in enumerate(zip(steps, trace)):
+        if k and s_in != steps[k - 1][1]:
+            raise AssertionError(f"{hc.name} ram_zksnark: step {k}'s incoming state is not "
+                                 f"step {k - 1}'s outgoing one")
+        if (s_in.timestamp, s_in.pc, s_in.regs, s_in.flag) != (k, row.pc, row.regs, row.flag):
+            raise AssertionError(f"{hc.name} ram_zksnark: step {k} is not the simulator's")
+    if not (final.has_accepted and last is steps[-1][2] and len(steps) == T):
+        raise AssertionError(f"{hc.name} ram_zksnark: the last state does not accept")
+    t_chain = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    keys = replay_groth16_key(model, hc, cs, kg_seed, pool)
+    n = get_domain_of_min_size(model.Fr, cs.num_constraints + cs.primary_input_size + 1).n
+    checked = groth16_key_checks(model, hc, spk.pk, spk.vk, keys, n, random.Random(seed + 502), pool)
+    for k in (0, T - 1):
+        check_groth16_proof(model, hc, keys, steps[k][3], blinding_of(pr_seed, rr, k), steps[k][2],
+                            f"ram_zksnark step {k}", pool)
+    del keys
+    t_checks = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tampered = [replace(final, root=(final.root + 1) % rr), replace(final, has_accepted=0)]
+    wrong = pool.submit(sp_pcd_verify, (hc.name, spk.vk, bare_pred,
+                                        pcd.R1CSPCDMessage(1, tampered[0].payload()), last))
+    t1 = time.perf_counter()
+    if not ram_zksnark.verifier(kp, tape, final, last):
+        raise AssertionError(f"{hc.name} ram_zksnark: the verifier rejects the final state")
+    t_verify = time.perf_counter() - t1
+    if ram_zksnark.verifier(kp, tape, tampered[1], last) or wrong.result():
+        raise AssertionError(f"{hc.name} ram_zksnark: the verifier accepts a tampered final state")
+    if not all(v.result() for v in verdicts):
+        raise AssertionError(f"{hc.name} ram_zksnark: a step's proof does not verify")
+    t_verdicts = time.perf_counter() - t0
+    domain = get_domain_of_min_size(model.Fr, cs.num_constraints + cs.primary_input_size + 1)
+    emit("ram_zksnark", curve=hc.name, w=program.ap.w, k=program.ap.k, memory_depth=RAM_ZK_DEPTH,
+         instructions=len(program.instructions), tape_words=len(tape), T=T,
+         constraints=cs.num_constraints, variables=cs.num_variables, qap_domain=domain.n,
+         qap_domain_kind=type(domain).__name__, final_state=final.payload(),
+         steps_verified=len(verdicts), proofs_equal=[0, T - 1], queries_checked=checked,
+         proof_sha256=[hashlib.sha256(steps[k][2].to_bytes(model)).hexdigest() for k in (0, T - 1)],
+         verifier={"accepts": "the final state", "rejects": ["root + 1", "has_accepted 0"]},
+         seconds={"generate": t_kg, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                  "prove_per_step": t_prove / T, "prove_phases": dict(prof.cumulative),
+                  "verify": t_verify, "verdicts": t_verdicts},
+         host_seconds={"draw": t_draw, "chain_checks": t_chain, "key_and_proof_checks": t_checks},
+         peak_device_bytes={"keygen": kg_peak, "prove": peak},
+         launches={"keygen": kg_launches, "prove": launches}, lanes=top_lanes(lanes),
+         keygen_lanes=top_lanes(kg_lanes))
+    report = kernels_after(ctx, errs, "ram_zksnark", lanes, kg_lanes)
+    return [{"curve": hc.name, "size": {"T": T, "qap_domain": domain.n}, "launches": launches,
+             "report": report}]
+
+
+# --------------------------------------------------------------------------
+# phase: fixnum (the stage-1 field-arithmetic stream)
+# --------------------------------------------------------------------------
+FIXNUM_CHUNKS = 2
+
+
+def mont_product_bytes(args) -> bytes:
+    """a_i * b_i * 2^-768 mod q over Python integers, 96 bytes each."""
+    a, b, q = args
+    rinv = pow(1 << 768, -1, q)
+    return b"".join((int.from_bytes(a[i : i + 96], "little") * int.from_bytes(b[i : i + 96], "little")
+                     * rinv % q).to_bytes(96, "little") for i in range(0, len(a), 96))
+
+
+def fixnum_phase(contexts: dict, n: int, seed: int, workdir: Path, errs: dict, pool) -> list:
+    """``cli_fixnum.main`` on the card over a stream of FIXNUM_CHUNKS chunks
+    of n (n / 2 Montgomery products over q(MNT4753), then over q(MNT6753), a
+    chunk), words drawn from the seed below 2^751, with the launch counts set
+    to 0 just before and read just after; its output held byte for byte
+    against Python-integer products on the pool; then the Montgomery kernel
+    at its lane count on each curve (Fr of one curve is Fq of the other)."""
+    ctx = contexts["MNT4753"]
+    t0 = time.perf_counter()
+    src, dst = workdir / "fixnum-inputs", workdir / "fixnum-outputs"
+    rng = np.random.default_rng(seed + 700)
+    chunks = []
+    with open(src, "wb") as f:
+        for _ in range(FIXNUM_CHUNKS):
+            words = rng.integers(0, 1 << 32, size=(2 * n, 24), dtype=np.uint32)
+            words[:, 23] &= 0x7FFF  # below 2^751, so below both moduli
+            data = words.astype("<u4").tobytes()
+            f.write(struct.pack("<Q", n) + data)
+            chunks.append(data)
+    t_write = time.perf_counter() - t0
+    _, t_run, launches, lanes, peak = path_run(
+        ctx["model"], ctx["hc"], "fixnum", lambda: cli_fixnum.main([str(src), str(dst)]),
+        kernels=["mont_mul"])
+    t0 = time.perf_counter()
+    half, tasks = 48 * n, []
+    for data in chunks:
+        for j, q in enumerate(contexts[c]["model"].Fq.p for c in ("MNT4753", "MNT6753")):
+            a, b = data[2 * j * half : (2 * j + 1) * half], data[(2 * j + 1) * half : (2 * j + 2) * half]
+            step = -(-n // 2 // HOST_PIECES) * 96
+            tasks += [(a[i : i + step], b[i : i + step], q) for i in range(0, half, step)]
+    want = b"".join(pool.map(mont_product_bytes, tasks))
+    got = dst.read_bytes()
+    if got != want:
+        raise AssertionError("fixnum: the card's products differ from the integers'")
+    t_check = time.perf_counter() - t0
+    emit("fixnum", chunks=FIXNUM_CHUNKS, n=n, products_per_curve_per_chunk=n // 2,
+         output_bytes=len(got), output_sha256=hashlib.sha256(got).hexdigest(), equal=True,
+         seconds={"stream": t_run}, host_seconds={"write_stream": t_write, "check": t_check},
+         peak_device_bytes=peak, launches=launches, lanes=top_lanes(lanes))
+    mont = {"mont_mul": lanes["mont_mul"]}
+    return [{"curve": c, "size": {"n": n, "modulus": f"Fr of {c}"}, "launches": launches,
+             "report": kernels_after(contexts[c], errs, "fixnum", mont)} for c in contexts]
+
+
+# --------------------------------------------------------------------------
+# phase: pedersen (the batch Pedersen hash, one staged MSM)
+# --------------------------------------------------------------------------
+PEDERSEN_COEFFS = 2048  # the coefficient strip: max_input_size
+
+
+def pedersen_host_hashes(args) -> list:
+    ped, rows = args
+    return [ped.hash_bits([bool(b) for b in row])[0] for row in rows]
+
+
+def pedersen_phase(ctx: dict, messages: int, seed: int, errs: dict, pool) -> list:
+    """``pedersen.hash_batch_device`` for a batch of ``messages`` messages of
+    PEDERSEN_COEFFS bits drawn from the seed (the last all ones), over
+    ``ctx``'s curve's G1 (MNT6753, the inner curve of MNT4753), with the
+    launch counts set to 0 just before and read just after; every digest
+    against ``PedersenSchnorr.hash_bits`` on the pool; one ``sign`` /
+    ``verify`` pair on top, and a flipped message bit rejected."""
+    model, hc = ctx["model"], ctx["hc"]
+    t0 = time.perf_counter()
+    ped = pedersen.PedersenSchnorr("MNT4753", random.Random(seed + 800), PEDERSEN_COEFFS)
+    if ped.hc.name != hc.name:
+        raise AssertionError(f"pedersen: the hash is over {ped.hc.name}, not {hc.name}")
+    rng = random.Random(seed + 801)
+    bits = [[rng.randrange(2) for _ in range(PEDERSEN_COEFFS)] for _ in range(messages - 1)]
+    bits.append([1] * PEDERSEN_COEFFS)
+    t_setup = time.perf_counter() - t0
+    got, t_hash, launches, lanes, peak = path_run(
+        model, hc, "pedersen",
+        lambda: pedersen.hash_batch_device("MNT4753", ped.coeffs, bits, model.device),
+        kernels=["ec_add_fp", "ec_dbl_fp"])
+    t0 = time.perf_counter()
+    want = list(chain.from_iterable(pool.map(pedersen_host_hashes, [(ped, part)
+                                                                    for part in pieces(bits)])))
+    if got != want:
+        raise AssertionError("pedersen: the card's digests differ from the host's")
+    t_check = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk, pk = ped.keygen()
+    msg = [bool(b) for b in bits[0][:256]]
+    sig = ped.sign(sk, msg)
+    flipped = [not msg[0]] + msg[1:]
+    if not ped.verify(pk, msg, sig) or ped.verify(pk, flipped, sig):
+        raise AssertionError("pedersen: the Schnorr verdicts are wrong")
+    t_sign = time.perf_counter() - t0
+    emit("pedersen", curve=hc.name, messages=messages, bits=PEDERSEN_COEFFS, digests_equal=len(got),
+         schnorr={"accepts": "256-bit message", "rejects": ["first bit flipped"]},
+         seconds={"hash_batch": t_hash}, host_seconds={"setup": t_setup, "check": t_check,
+                                                       "sign_and_verify": t_sign},
+         peak_device_bytes=peak, launches=launches, lanes=top_lanes(lanes))
+    report = kernels_after(ctx, errs, "pedersen", lanes)
+    return [{"curve": hc.name, "size": {"messages": messages, "bits": PEDERSEN_COEFFS},
+             "launches": launches, "report": report}]
 
 
 def largest_and_commonest(name: str, seen: dict) -> set:
@@ -2843,7 +3361,7 @@ def main(argv=None) -> int:
                     help="d + 1 of the MNT6753 full-size proves (the challenge's size is "
                          "32768; 24576 = 2^14 + 2^13 takes a step domain; 819200 = 25 * 2^15 "
                          "is the largest domain of its scalar field)")
-    ap.add_argument("--keygen4", type=int, default=1 << 19,
+    ap.add_argument("--keygen4", type=int, default=1 << 17,
                     help="d + 1 of the MNT4753 key generation and groth16 phase (a power of "
                          "two; the reference's default is 2^20, which the challenge prove "
                          "at --sizes4's 2^20 keeps on the path)")
@@ -2852,7 +3370,7 @@ def main(argv=None) -> int:
                          "reference's default is 2^15)")
     ap.add_argument("--bacs-gates", type=int, default=1 << 14,
                     help="gates of the BACS circuit proved on MNT4753 (0: no bacs phase)")
-    ap.add_argument("--gm17-4", type=int, default=1 << 18,
+    ap.add_argument("--gm17-4", type=int, default=1 << 16,
                     help="d + 1 of the MNT4753 gm17 phase's example, one of its own drawn from "
                          "the seed (a power of two; its SAP domain is twice that; --keygen4's "
                          "value takes the key generation's example; 0: no gm17 phase on "
@@ -2872,9 +3390,9 @@ def main(argv=None) -> int:
                     help="the QAP domain that the MNT4753 ram phase's circuit fills (a power "
                          "of two, at least 2^16: its program runs about 85 steps; 0: no ram "
                          "phase; its circuit is over MNT4753's Fr alone)")
-    ap.add_argument("--tbcs4", default="130048,1024,32,1024",
+    ap.add_argument("--tbcs4", default="31744,1024,32,1024",
                     help="gates, inputs, primary inputs and outputs of the TBCS circuit proved "
-                         "on MNT4753 (2 gates + inputs + outputs USCS constraints: 2^18 by "
+                         "on MNT4753 (2 gates + inputs + outputs USCS constraints: 2^16 by "
                          "default; 0: no tbcs phase)")
     ap.add_argument("--tbcs6", default="16128,256,8,256",
                     help="the same on MNT6753 (2^15 constraints by default, its scalar "
@@ -2887,6 +3405,20 @@ def main(argv=None) -> int:
                     help="recursive steps of the pcd phase after the base case: a chain of "
                          "--pcd + 1 proofs alternating MNT4753 and MNT6753, after both curves' "
                          "phases (needs both curves; 0: no pcd phase)")
+    ap.add_argument("--mp-pcd", type=int, default=1,
+                    help="1: the mp_pcd phase after the pcd chain (the multi-predicate base case "
+                         "on MNT4753 over two predicates, and the recursive step on MNT6753 at "
+                         "a QAP of 409600; needs both curves; 0: no mp_pcd phase)")
+    ap.add_argument("--ram-zksnark", type=int, default=2,
+                    help="tape words of the ram_zksnark phase's program on MNT4753 (w = k = 16, "
+                         "a memory of 32 words; 1 to 16: more words, more steps; 0: no "
+                         "ram_zksnark phase)")
+    ap.add_argument("--fixnum", type=int, default=1 << 20,
+                    help="n of each of the two chunks of the fixnum stream (n / 2 products a "
+                         "curve a chunk; even; needs both curves; 0: no fixnum phase)")
+    ap.add_argument("--pedersen", type=int, default=32,
+                    help="messages of 2048 bits in the pedersen phase's batch hash, over "
+                         "MNT6753's G1 (at least 2; 0: no pedersen phase)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
@@ -2894,8 +3426,15 @@ def main(argv=None) -> int:
     curves = args.curves.split(",")
     if not curves or any(c not in MODELS for c in curves):
         raise SystemExit(f"--curves takes a comma-separated subset of {', '.join(MODELS)}")
-    if args.pcd and set(curves) != set(MODELS):
-        raise SystemExit("--pcd needs both curves (--pcd 0 skips the phase)")
+    for flag, value in (("--pcd", args.pcd), ("--mp-pcd", args.mp_pcd), ("--fixnum", args.fixnum)):
+        if value and set(curves) != set(MODELS):
+            raise SystemExit(f"{flag} needs both curves ({flag} 0 skips the phase)")
+    if args.ram_zksnark and ("MNT4753" not in curves or not 1 <= args.ram_zksnark <= 16):
+        raise SystemExit("--ram-zksnark takes 0 or 1 to 16 tape words, and needs MNT4753")
+    if args.pedersen and ("MNT6753" not in curves or args.pedersen < 2):
+        raise SystemExit("--pedersen takes 0 or at least 2 messages, and needs MNT6753")
+    if args.fixnum % 2:
+        raise SystemExit("--fixnum takes an even n")
     sizes = {"MNT4753": sorted(int(v) for v in args.sizes4.split(",")),  # int() refuses ""
              "MNT6753": sorted(int(v) for v in args.sizes6.split(","))}
     if any(n < 8 for v in sizes.values() for n in v):
@@ -2956,8 +3495,21 @@ def main(argv=None) -> int:
                 emit("sass", **sass_counts(libs[stem]))
             for curve in curves:
                 results[curve] = run_curve(curve, sizes[curve], args, workdir, errs, pool)
-            chain_steps = (pcd_phase({c: r[3] for c, r in results.items()}, args.pcd, args.seed,
-                                     errs, pool) if args.pcd else [])
+            contexts = {c: r[3] for c, r in results.items()}
+            chain_steps = pcd_phase(contexts, args.pcd, args.seed, errs, pool) if args.pcd else []
+            # the paths after the chain: kernel entries by path
+            later = {}
+            if args.mp_pcd:
+                later["mp_pcd"] = mp_pcd_phase(contexts, args.seed, errs, pool)
+            if args.ram_zksnark:
+                later["ram_zksnark"] = ram_zksnark_phase(contexts["MNT4753"], args.ram_zksnark,
+                                                         args.seed, errs, pool)
+            if args.fixnum:
+                later["fixnum"] = fixnum_phase(contexts, args.fixnum, args.seed, workdir, errs,
+                                               pool)
+            if args.pedersen:
+                later["pedersen"] = pedersen_phase(contexts["MNT6753"], args.pedersen, args.seed,
+                                                   errs, pool)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2966,7 +3518,8 @@ def main(argv=None) -> int:
     # under "keygen", "groth16", "gm17", "pghr13", "adsnark", "ram" and "tbcs" its
     # numbers on each curve's key generation and on its blinded Groth16, GM17,
     # PGHR13, ADSNARK, RAM and TBCS proves; under "towers" the towers check's
-    # launches and times (mont_mul alone), under "pcd" each chain step's prove
+    # launches and times (mont_mul alone), under "pcd" each chain step's prove;
+    # under "mp_pcd", "ram_zksnark", "fixnum" and "pedersen" those phases' runs
     kernels = {}
     for curve, (launches, report, paths, ctx) in results.items():
         for name, r in report.items():
@@ -2990,6 +3543,11 @@ def main(argv=None) -> int:
             kernels[name].setdefault("pcd", []).append(
                 {"curve": step["curve"], "step": step["step"], "qap_domain": step["qap_domain"],
                  "launches": step["launches"][name], **r})
+    for key, entries in later.items():
+        for e in entries:
+            for name, r in e["report"].items():
+                kernels[name].setdefault(key, []).append(
+                    {"curve": e["curve"], **e["size"], "launches": e["launches"][name], **r})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,9 @@ def test_every_module_is_listed():
                  "proof_systems.ram_ppzksnark", "proof_systems.pairing",
                  "gadgets.basic_gadgets", "gadgets.field_ext_gadgets", "gadgets.curve_gadgets",
                  "gadgets.pairing_gadgets", "gadgets.verifier_gadget", "gadgets.knapsack",
-                 "proof_systems.pcd"):
+                 "proof_systems.pcd", "proof_systems.mp_pcd", "proof_systems.ram_zksnark",
+                 "gadgets.sha256_gadget", "gadgets.merkle_tree", "gadgets.gadgetlib2",
+                 "cli_fixnum", "pedersen"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
@@ -133,6 +135,26 @@ def test_mnt6753_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         cli.main(["MNT6753", "compute", str(data / "MNT6753-3.params"),
                   str(data / "MNT6753-3.input"), str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+
+
+def test_fixnum_and_pedersen_default_to_cuda_and_raise_without_it(tmp_path):
+    """The stage-1 stream and the Pedersen batch hash run on the card unless
+    asked for the CPU; without a card they raise, and the stream writes no
+    output."""
+    import torch
+
+    from snark_challenge_prover_tpu_torch import cli_fixnum, pedersen
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run on it")
+    stream = tmp_path / "in"
+    stream.write_bytes((2).to_bytes(8, "little") + bytes(4 * 96))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_fixnum.main([str(stream), str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+    hc = pedersen.PedersenSchnorr("MNT4753", max_input_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pedersen.hash_batch_device("MNT4753", hc.coeffs, [[1, 0]])
 
 
 def test_fq3_kernel_wrappers_refuse_other_devices():
