@@ -9,7 +9,9 @@
                           [--bacs-gates 16384] [--ram4 65536]
                           [--tbcs4 31744,1024,32,1024] [--tbcs6 16128,256,8,256]
                           [--towers 4099] [--pcd 2] [--mp-pcd 1] [--ram-zksnark 2]
-                          [--fixnum 1048576] [--pedersen 32] [--seed 1]
+                          [--fixnum 1048576] [--pedersen 32] [--caml4 32768]
+                          [--caml6 1024] [--polynomial 524288] [--functions 16384]
+                          [--seed 1]
 
 Builds the CUDA kernels from the sources in this checkout and then, for
 MNT4753 and for MNT6753 in turn: checks the curve's GT tower (``towers``:
@@ -101,7 +103,7 @@ witness map with the prover's d by its identity at t; the verdicts (a
 flipped primary bit); and the kernels at the prove's lane counts and at
 the generator's new ones.
 
-After both curves, the ``pcd`` chain (``--pcd``) and four later phases.
+After both curves, the ``pcd`` chain (``--pcd``) and seven later phases.
 ``mp_pcd`` (``--mp-pcd``): ``MPPCDProver`` at arity 0 on MNT4753 over two
 counter predicates (mult 1 and 2): its keygen, a prove under each key, the
 commitment against knapsack digests recomputed here, each key and proof
@@ -121,7 +123,24 @@ final state accepted and two tampered forms rejected.  ``fixnum``
 output byte for byte the Python integers' Montgomery products.
 ``pedersen`` (``--pedersen`` messages): ``hash_batch_device`` over the
 2048-point coefficient strip, every digest against the host hash, and a
-Schnorr signature.  After each, the kernels at its lane counts.
+Schnorr signature.  ``caml`` (``--caml4`` 2^15, ``--caml6`` 2^10: num_constraints +
+num_inputs + 1, 2 inputs): the field-input chain built through the
+camlsnark_* C ABI (``io.caml_ffi``, its library built from ``native/`` with
+g++), extracted and its digest held to the extracted terms and to the port's
+own example; ``groth16_full`` key and prove on the card, the verdicts, the
+proof against the host's scalars; the key, verification key and proof in
+libsnark's bytes (``io.caml_serialization``) equal to what the native
+``*_of_string`` / ``*_to_string`` give back, read back onto the card, and the
+key read back proving to the same bytes; on MNT4753 that prove under
+``op_counts.counting()``, its report against its launches (each group's add
+its K2 lanes, its dbl its K3 lanes times k, the other products K1's lanes),
+and a G1 and a G2 addition and doubling at 4099 lanes reporting the same
+through the kernel and its plain version.  ``polynomial`` (``--polynomial``
+2^19): ``ops.polynomial.multiplication`` of two polynomials over MNT4753's Fr,
+a domain of 2^20, checked at two points by host Horner.  ``functions``
+(``--functions`` 16384 lanes): ``modexp`` and ``modinv`` on MNT4753's Fr,
+``quorem``, ``divexact`` and ``chinese`` over (r, q), every lane against
+Python integers.  After each, the kernels at its lane counts.
 
 Each phase prints one JSON line.  Any failure raises, so the exit code is
 non-zero and no result line is printed.  The last line on success is
@@ -132,6 +151,7 @@ power limit holds one JSON object with every kernel's numbers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -145,7 +165,7 @@ import sys
 import tempfile
 import time
 from collections import namedtuple
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import replace
 from itertools import chain
 from pathlib import Path
@@ -159,10 +179,13 @@ sys.path.insert(0, str(REPO))
 from snark_challenge_prover_tpu_torch import cli, cli_fixnum, pedersen  # noqa: E402
 from snark_challenge_prover_tpu_torch.cli_generate_parameters import generate_for_curve  # noqa: E402
 from snark_challenge_prover_tpu_torch.host.curves import host_curve  # noqa: E402
+from snark_challenge_prover_tpu_torch.io import caml_ffi  # noqa: E402
+from snark_challenge_prover_tpu_torch.io import caml_serialization as cser  # noqa: E402
 from snark_challenge_prover_tpu_torch.io import keys as key_io  # noqa: E402
 from snark_challenge_prover_tpu_torch.io import serialization as ser  # noqa: E402
 from snark_challenge_prover_tpu_torch.models import mnt4753, mnt6753  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops import _build, cuda_field, cuda_group  # noqa: E402
+from snark_challenge_prover_tpu_torch.ops import functions, polynomial  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.msm import default_window_bits  # noqa: E402
 from snark_challenge_prover_tpu_torch.ops.fft import (  # noqa: E402
     get_domain_of_min_size, get_evaluation_domain)
@@ -190,6 +213,7 @@ from snark_challenge_prover_tpu_torch.relations.r1cs import (  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.tbcs import TBCSCircuit, TBCSGate  # noqa: E402
 from snark_challenge_prover_tpu_torch.relations.tinyram import (  # noqa: E402
     Instruction, TinyRAMArchParams, TinyRAMProgram, simulate)
+from snark_challenge_prover_tpu_torch.utils import op_counts  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.profiling import Profiler  # noqa: E402
 from snark_challenge_prover_tpu_torch.utils.bigint import ints_to_words, words_to_ints  # noqa: E402
 
@@ -3231,6 +3255,359 @@ def pedersen_phase(ctx: dict, messages: int, seed: int, errs: dict, pool) -> lis
              "launches": launches, "report": report}]
 
 
+# --------------------------------------------------------------------------
+# phase: caml (circuits built through the camlsnark_* C ABI, as Mina's snarky
+# drives libsnark; keys and proofs in libsnark's iostream bytes)
+# --------------------------------------------------------------------------
+def caml_chain_circuit(ffi, num_constraints: int, num_inputs: int, rng):
+    """The field-input chain of r1cs_examples.tcc (``relations.examples.
+    generate_r1cs_example_with_field_input``, drawing from ``rng`` in its
+    order) built through the C ABI on a new protoboard of ``ffi``: the
+    constraints (a + b) * 1 = c and a * b = c, then (sum of the variables)^2
+    = the last one, and the assignment.  Returns the protoboard."""
+    pb, p = ffi.protoboard(), ffi.modulus()
+    n_vars = num_constraints + 2
+    vars_ = [pb.allocate() for _ in range(n_vars)]
+    pb.set_input_sizes(num_inputs)
+    a, b = rng.randrange(p), rng.randrange(p)
+    assignment = [a, b]
+    for i in range(num_constraints - 1):
+        if i % 2:
+            A, B, tmp = pb.lc([(1, vars_[i])]), pb.lc([(1, vars_[i + 1])]), a * b % p
+        else:
+            A, B, tmp = pb.lc([(1, vars_[i]), (1, vars_[i + 1])]), pb.lc([(1, 0)]), (a + b) % p
+        assignment.append(tmp)
+        a, b = b, tmp
+        pb.add_constraint(A, B, pb.lc([(1, vars_[i + 2])]))
+    fin = sum(assignment) % p
+    total = [(1, v) for v in vars_[:-1]]
+    pb.add_constraint(pb.lc(total), pb.lc(total), pb.lc([(1, vars_[-1])]))
+    assignment.append(fin * fin % p)
+    for v, val in zip(vars_, assignment):
+        pb.set(v, val)
+    return pb
+
+
+CAML_INPUTS = 2  # primary inputs of the caml phase's circuits
+CAML_COUNT_LANES = 4099  # lanes of the kernel-against-plain op-count comparison
+
+
+def lane_sum(lanes: dict, name: str) -> int:
+    """Lanes of all launches of a kernel (for a doubling, lanes times k)."""
+    return sum(math.prod(as_tuple(shape)) * count for shape, count in lanes.get(name, {}).items())
+
+
+def check_op_counts(model, report: dict, lanes: dict) -> dict:
+    """A prove's op-count report against its launches: each group's add is
+    its K2 lanes, its dbl the lanes times k of its K3 launches, and the
+    field products counted outside the group kernels (every mul and sqr
+    less those ``cuda_group.formula_ops`` records for the kernels) are K1's
+    lanes.  Raises on a difference; returns the sums."""
+    got, in_groups = {}, 0
+    for G in (model.G1, model.G2):
+        for op, kern in (("add", "ec_add"), ("dbl", "ec_dbl")):
+            n = report.get(f"{G.name}.{op}", 0)
+            got[f"{G.name}.{op}"] = (n, lane_sum(lanes, f"{kern}_{G.kernel_field}"))
+            in_groups += n * sum(v for k, v in cuda_group.formula_ops(G, op).items()
+                                 if k.endswith((".mul", ".sqr")))
+    products = sum(v for k, v in report.items() if k.endswith((".mul", ".sqr")))
+    got["products outside the group kernels"] = (products - in_groups,
+                                                 lane_sum(lanes, "mont_mul"))
+    bad = {k: v for k, v in got.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"{model.name}: op counts against launched lanes "
+                             f"(counted, launched): {bad}")
+    return {k: v[0] for k, v in got.items()}
+
+
+def kernel_and_plain_counts(ctx: dict, n: int) -> dict:
+    """A G1 and a G2 addition and doubling (k = 1 and 4) at n lanes,
+    counted through the kernel (``Curve.add`` / ``double`` on the card) and
+    through its plain version on the card: equal reports.  Returns them."""
+    model = ctx["model"]
+    out = {}
+    for G, strip in ((model.G1, ctx["g1_strip"]), (model.G2, ctx["g2_strip"])):
+        P = point_tensors(model, G, strip, n, 0)
+        Q = point_tensors(model, G, strip, n, 1)
+        for what, kern, plain in (
+                ("add", lambda: G.add(P, Q), lambda: cuda_group.ec_add_plain(G, P, Q)),
+                ("dbl", lambda: G.double(P), lambda: cuda_group.ec_dbl_plain(G, P)),
+                ("dbl k=4", lambda: G.double(P, 4), lambda: cuda_group.ec_dbl_plain(G, P, 4))):
+            reports = []
+            for run in (kern, plain):
+                with op_counts.counting() as c:
+                    run()
+                reports.append(c.report())
+            if reports[0] != reports[1]:
+                raise AssertionError(f"{G.name} {what}: kernel {reports[0]} != plain {reports[1]}")
+            out[f"{G.name} {what}"] = reports[0]
+    torch.cuda.synchronize()
+    return out
+
+
+def caml_curve(ctx: dict, n: int, seed: int, pool, counted: bool) -> dict:
+    """One curve's caml path at num_constraints + num_inputs + 1 = n: the
+    chain circuit built natively, extracted and its digest checked against
+    the extracted terms and the port's own example; ``groth16_full`` key,
+    verification key and prove on the card; the verdicts; the proof against
+    the host's scalars with no MSM; the key, verification key and proof in
+    libsnark's bytes through the native ``*_of_string`` / ``*_to_string``
+    (bytes equal), read back onto the card, and the key read back proving to
+    the same bytes under the same seed: that prove under
+    ``op_counts.counting()`` when ``counted``, its report against its launches."""
+    model, hc = ctx["model"], ctx["hc"]
+    rr, curve = model.Fr.p, hc.name
+    t0 = time.perf_counter()
+    ffi = caml_ffi.CamlFFI(curve)
+    t_load = time.perf_counter() - t0
+    if ffi.modulus() != rr:
+        raise AssertionError(f"caml {curve}: the native field is not Fr")
+    nc = n - CAML_INPUTS - 1
+    t0 = time.perf_counter()
+    pb = caml_chain_circuit(ffi, nc, CAML_INPUTS, random.Random(seed + 900))
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs, primary, aux = pb.extract()
+    t_extract = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    digest = pb.digest()
+    ex = generate_r1cs_example_with_field_input(rr, nc, CAML_INPUTS, random.Random(seed + 900))
+    if digest != caml_ffi.r1cs_digest(cs) or digest != caml_ffi.r1cs_digest(ex.constraint_system):
+        raise AssertionError(f"caml {curve}: the native digest differs from the extracted terms'")
+    if (primary, aux) != (ex.primary_input, ex.auxiliary_input) or not cs.is_satisfied(primary, aux):
+        raise AssertionError(f"caml {curve}: the extracted assignment differs or fails")
+    t_digest = time.perf_counter() - t0
+    del ex
+
+    kg_seed, pr_seed = seed + 901, seed + 902
+    kg_prof, prof = Profiler(model.device, verbose=False), Profiler(model.device, verbose=False)
+    (pk, secrets), t_kg, kg_launches, kg_lanes, kg_peak = path_run(
+        model, hc, "caml keygen",
+        lambda: groth16_full.proving_key(model, cs, random.Random(kg_seed), kg_prof))
+    t0 = time.perf_counter()
+    vk = groth16_full.verification_key(pk, secrets)
+    t_vk = time.perf_counter() - t0
+    proof, t_prove, launches, lanes, peak = path_run(
+        model, hc, "caml prove",
+        lambda: groth16_full.prover(model, pk, primary, aux, random.Random(pr_seed), prof))
+    domain = get_domain_of_min_size(model.Fr, cs.num_constraints + CAML_INPUTS + 1)
+    tampered = groth16_full.Proof(hc.g1.add(proof.g_A, hc.g1_gen), proof.g_B, proof.g_C)
+    verdicts = check_verdicts(hc, groth16_full, vk, primary, proof, tampered, pool)
+    t0 = time.perf_counter()
+    keys = replay_groth16_key(model, hc, cs, kg_seed, pool)
+    check_groth16_proof(model, hc, keys, [1] + primary + aux, blinding_of(pr_seed, rr), proof,
+                        "caml prove", pool)
+    t_expected = time.perf_counter() - t0
+    del keys
+
+    # libsnark's bytes, through the native string entry points and back
+    t0 = time.perf_counter()
+    blobs = {"proving_key": cser.proving_key_to_bytes(pk),
+             "verification_key": cser.verification_key_to_bytes(vk),
+             "proof": cser.proof_to_bytes_caml(curve, proof)}
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = {"proving_key": ffi.proving_key_to_string(pk),
+              "verification_key": ffi.verification_key_to_string(vk),
+              "proof": ffi.proof_to_string(proof)}
+    t_native = time.perf_counter() - t0
+    if native != blobs:
+        raise AssertionError(f"caml {curve}: the native strings differ from the port's bytes: "
+                             f"{[k for k in blobs if native[k] != blobs[k]]}")
+    t0 = time.perf_counter()
+    pk2 = ffi.proving_key_of_string(native["proving_key"], model.device)
+    t_read = time.perf_counter() - t0
+    if (ffi.verification_key_of_string(native["verification_key"]) != vk
+            or ffi.proof_of_string(native["proof"]) != proof
+            or pk2.A_query[0].device != model.device
+            or cser.proving_key_to_bytes(pk2) != blobs["proving_key"]):
+        raise AssertionError(f"caml {curve}: what was read back differs")
+    scope = op_counts.counting() if counted else contextlib.nullcontext()
+    with scope as oc:
+        proof2, t_prove2, launches2, lanes2, _ = path_run(
+            model, hc, "caml prove (key read back)",
+            lambda: groth16_full.prover(model, pk2, primary, aux, random.Random(pr_seed)))
+    if cser.proof_to_bytes_caml(curve, proof2) != blobs["proof"]:
+        raise AssertionError(f"caml {curve}: the key read back proves to other bytes")
+    counts = None
+    if counted:
+        counts = {"report": oc.report(), "against_launches": check_op_counts(model, oc.report(),
+                                                                            lanes2)}
+        print(f"op counts, {curve} caml prove (print_cumulative_op_counts):", flush=True)
+        oc.print_report()
+    return {"curve": curve, "constraints": cs.num_constraints, "variables": cs.num_variables,
+            "terms": sum(len(c.a.terms) + len(c.b.terms) + len(c.c.terms) for c in cs.constraints),
+            "qap_domain": domain.n, "digest": digest.hex(),
+            "bytes": {k: len(v) for k, v in blobs.items()},
+            "proof_sha256": hashlib.sha256(blobs["proof"]).hexdigest(), "op_counts": counts,
+            "seconds": {"keygen": t_kg, "keygen_phases": dict(kg_prof.cumulative), "prove": t_prove,
+                        "prove_phases": dict(prof.cumulative), "prove_key_read_back": t_prove2,
+                        **verdicts},
+            "host_seconds": {"load_library": t_load, "build_circuit": t_build,
+                             "extract": t_extract, "digest_and_example": t_digest,
+                             "verification_key": t_vk, "expected_proof": t_expected,
+                             "write_bytes": t_write, "native_round_trip": t_native,
+                             "read_key_to_card": t_read},
+            "peak_device_bytes": {"keygen": kg_peak, "prove": peak},
+            "launches": {"keygen": kg_launches, "prove": launches, "prove_key_read_back": launches2},
+            "lanes": top_lanes(lanes), "keygen_lanes": top_lanes(kg_lanes),
+            "_lanes": lanes, "_kg_lanes": kg_lanes}
+
+
+def caml_phase(contexts: dict, sizes: dict, seed: int, errs: dict, pool) -> list:
+    """The caml path on each curve of ``sizes`` (num_constraints +
+    num_inputs + 1; 0 skips the curve): ``caml_curve``, the MNT4753 prove
+    with the key read back counted; then, under ``op_counts.counting()``, a
+    G1 and a G2 addition and doubling at the towers check's lanes through
+    each kernel and its plain version (``kernel_and_plain_counts``); the
+    kernels at the path's lane counts."""
+    out = []
+    for curve, n in sizes.items():
+        if not n:
+            continue
+        ctx = contexts[curve]
+        r = caml_curve(ctx, n, seed, pool, counted=curve == "MNT4753")
+        lanes, kg_lanes = r.pop("_lanes"), r.pop("_kg_lanes")
+        t0 = time.perf_counter()
+        r["kernel_and_plain_counts"] = kernel_and_plain_counts(ctx, CAML_COUNT_LANES)
+        r["host_seconds"]["kernel_and_plain_counts"] = time.perf_counter() - t0
+        emit("caml", **r)
+        out.append({"curve": curve, "size": {"n": n, "qap_domain": r["qap_domain"]},
+                    "launches": r["launches"]["prove"],
+                    "report": kernels_after(ctx, errs, "caml", lanes, kg_lanes)})
+    return out
+
+
+def rand_ints(rng, n: int, bits: int) -> list:
+    """n integers below 2^bits from a numpy generator, by their words."""
+    nw = -(-bits // 32)
+    words = rng.integers(0, 1 << 32, size=(n, nw), dtype=np.uint32)
+    if bits % 32:
+        words[:, -1] &= np.uint32((1 << (bits % 32)) - 1)
+    raw = words.astype("<u4").tobytes()
+    return [int.from_bytes(raw[i : i + 4 * nw], "little") for i in range(0, len(raw), 4 * nw)]
+
+
+# --------------------------------------------------------------------------
+# phase: polynomial (multiplication_fft at the challenge's QAP size)
+# --------------------------------------------------------------------------
+def polynomial_phase(ctx: dict, n: int, seed: int, errs: dict, pool) -> list:
+    """``ops.polynomial.multiplication`` of two polynomials of n coefficients
+    over MNT4753's Fr drawn from the seed (a domain of 2n), with the launch
+    counts set to 0 just before and read just after; a(x) b(x) = c(x) at two
+    points drawn from the seed by host Horner on the pool; the kernels at its
+    lane counts."""
+    model, hc = ctx["model"], ctx["hc"]
+    F, rr = model.Fr, model.Fr.p
+    rng = np.random.default_rng(seed + 1000)
+    t0 = time.perf_counter()
+    a, b = ([v % rr for v in rand_ints(rng, n, 753)] for _ in range(2))
+    t_draw = time.perf_counter() - t0
+    c, t_mul, launches, lanes, peak = path_run(
+        model, hc, "polynomial", lambda: polynomial.multiplication(F, a, b), kernels=["mont_mul"])
+    t0 = time.perf_counter()
+    points = [v % rr for v in rand_ints(rng, 2, 753)]
+    for x in points:
+        if (pool_horner(pool, a, x, rr) * pool_horner(pool, b, x, rr) - pool_horner(pool, c, x, rr)) % rr:
+            raise AssertionError(f"polynomial: a(x) b(x) != c(x) at x = {x}")
+    t_check = time.perf_counter() - t0
+    emit("polynomial", field=F.name, coefficients=[n, n], product_coefficients=len(c),
+         domain=1 << (2 * n - 2).bit_length(), points_checked=2,
+         seconds={"multiplication": t_mul}, host_seconds={"draw": t_draw, "check": t_check},
+         peak_device_bytes=peak, launches=launches, lanes=top_lanes(lanes))
+    return [{"curve": hc.name, "size": {"coefficients": n}, "launches": launches,
+             "report": kernels_after(ctx, errs, "polynomial", lanes)}]
+
+
+# --------------------------------------------------------------------------
+# phase: functions (batched modexp, modinv, quorem, divexact, chinese)
+# --------------------------------------------------------------------------
+def modexp_piece(args) -> list:
+    bases, exps, p = args
+    return [pow(b, e, p) for b, e in zip(bases, exps)]
+
+
+def modinv_piece(args) -> list:
+    vals, p = args
+    return [pow(v, -1, p) if v % p else 0 for v in vals]
+
+
+def quorem_piece(args) -> list:
+    nums, dens = args
+    return [divmod(u, d) for u, d in zip(nums, dens)]
+
+
+def pooled(pool, fn, *cols, extra=()) -> list:
+    """fn over the columns in pieces on ``pool``, flattened."""
+    parts = list(zip(*(pieces(c) for c in cols)))
+    return list(chain.from_iterable(pool.map(fn, [(*p, *extra) for p in parts])))
+
+
+def functions_phase(ctx: dict, n: int, seed: int, errs: dict, pool) -> list:
+    """``ops.functions`` at n lanes on MNT4753, with the launch counts set to
+    0 just before and read just after: ``modexp`` and ``modinv`` on Fr with
+    753-bit exponents, ``quorem`` of 753-bit numerators by 400-bit
+    denominators, ``divexact`` of exact products (370 by 370 bits),
+    ``chinese`` over (r, q); every lane against Python integers on the pool;
+    the kernels at its lane counts."""
+    model, hc = ctx["model"], ctx["hc"]
+    Fr, Fq = model.Fr, model.Fq
+    rr, qq = Fr.p, Fq.p
+    rng = np.random.default_rng(seed + 1100)
+    t0 = time.perf_counter()
+    bases = [v % rr for v in rand_ints(rng, n, 753)]
+    exps = rand_ints(rng, n, 753)
+    nums, dens = rand_ints(rng, n, 753), [d | 1 for d in rand_ints(rng, n, 400)]
+    quots, divs = rand_ints(rng, n, 370), [d | 1 for d in rand_ints(rng, n, 370)]
+    xs = [v % (rr * qq) for v in rand_ints(rng, n, 1506)]
+    words = canonical_words
+    inputs = {"modexp": (Fr.from_canonical(words(Fr, bases)), words(Fr, exps)),
+              "modinv": (Fr.from_canonical(words(Fr, bases)),),
+              "quorem": (words(Fr, nums), words(Fr, dens)),
+              "divexact": (words(Fr, [u * v for u, v in zip(quots, divs)]), words(Fr, divs)),
+              "chinese": (words(Fq, [x % rr for x in xs]), words(Fq, [x % qq for x in xs]))}
+    t_draw = time.perf_counter() - t0
+    calls = {"modexp": lambda e: functions.modexp(Fr, *e), "modinv": lambda e: functions.modinv(Fr, *e),
+             "quorem": lambda e: functions.quorem(*e), "divexact": lambda e: functions.divexact(*e),
+             "chinese": lambda e: functions.chinese(Fr, Fq, *e)}
+    secs = {}
+
+    def run():
+        outs = {}
+        for name, call in calls.items():
+            t = time.perf_counter()
+            outs[name] = call(inputs[name])
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+        return outs
+
+    outs, t_all, launches, lanes, peak = path_run(model, hc, "functions", run, kernels=["mont_mul"])
+    t0 = time.perf_counter()
+    ints = lambda t: words_to_ints(t.cpu().numpy())
+    got_exp = ints(Fr.to_canonical(outs["modexp"]))
+    got_inv = ints(Fr.to_canonical(outs["modinv"]))
+    q, r = (ints(t) for t in outs["quorem"])
+    got_div = ints(outs["divexact"])
+    crt = np.ascontiguousarray(outs["chinese"].cpu().numpy().view(np.uint32).T).astype("<u4").tobytes()
+    got_crt = [int.from_bytes(crt[i : i + 192], "little") for i in range(0, len(crt), 192)]
+    failed = [name for name, ok in (
+        ("modexp", got_exp == pooled(pool, modexp_piece, bases, exps, extra=(rr,))),
+        ("modinv", got_inv == pooled(pool, modinv_piece, bases, extra=(rr,))),
+        ("quorem", list(zip(q, r)) == pooled(pool, quorem_piece, nums, dens)),
+        ("divexact", got_div == quots),
+        ("chinese", got_crt == xs)) if not ok]
+    if failed:
+        raise AssertionError(f"functions: lanes differ from Python integers in {failed}")
+    t_check = time.perf_counter() - t0
+    emit("functions", n=n, field=Fr.name, chinese_moduli=[Fr.name, Fq.name],
+         bits={"modexp_exponents": 753, "quorem": [753, 400], "divexact": [740, 370]},
+         lanes_equal=n, seconds={**secs, "all": t_all},
+         host_seconds={"draw": t_draw, "check": t_check}, peak_device_bytes=peak,
+         launches=launches, lanes=top_lanes(lanes))
+    return [{"curve": hc.name, "size": {"lanes": n}, "launches": launches,
+             "report": kernels_after(ctx, errs, "functions", lanes)}]
+
+
 def largest_and_commonest(name: str, seen: dict) -> set:
     """The largest shape of ``seen`` ({shape: launches}; a doubling's (lanes,
     k) by lanes times k) and the one launched most."""
@@ -3419,6 +3796,17 @@ def main(argv=None) -> int:
     ap.add_argument("--pedersen", type=int, default=32,
                     help="messages of 2048 bits in the pedersen phase's batch hash, over "
                          "MNT6753's G1 (at least 2; 0: no pedersen phase)")
+    ap.add_argument("--caml4", type=int, default=1 << 15,
+                    help="num_constraints + num_inputs + 1 of the MNT4753 circuit of the caml "
+                         "phase, built through the camlsnark_* C ABI (2 inputs; 0: none)")
+    ap.add_argument("--caml6", type=int, default=1 << 10,
+                    help="the same on MNT6753 (0: none)")
+    ap.add_argument("--polynomial", type=int, default=1 << 19,
+                    help="coefficients of each factor of the polynomial phase's product over "
+                         "MNT4753's Fr (a domain of twice that; 0: no polynomial phase)")
+    ap.add_argument("--functions", type=int, default=1 << 14,
+                    help="lanes of the functions phase (modexp, modinv, quorem, divexact, "
+                         "chinese on MNT4753; 0: no functions phase)")
     ap.add_argument("--curves", default="MNT4753,MNT6753",
                     help="curves to drive; the default is both, as a full smoke needs")
     ap.add_argument("--seed", type=int, default=1)
@@ -3435,6 +3823,12 @@ def main(argv=None) -> int:
         raise SystemExit("--pedersen takes 0 or at least 2 messages, and needs MNT6753")
     if args.fixnum % 2:
         raise SystemExit("--fixnum takes an even n")
+    args.caml = {"MNT4753": args.caml4, "MNT6753": args.caml6}
+    for curve, n in args.caml.items():
+        if n and (n < 8 or curve not in curves):
+            raise SystemExit("--caml4/--caml6 take 0 or at least 8, and need their curve")
+    if (args.polynomial or args.functions) and "MNT4753" not in curves:
+        raise SystemExit("--polynomial and --functions need MNT4753")
     sizes = {"MNT4753": sorted(int(v) for v in args.sizes4.split(",")),  # int() refuses ""
              "MNT6753": sorted(int(v) for v in args.sizes6.split(","))}
     if any(n < 8 for v in sizes.values() for n in v):
@@ -3486,8 +3880,14 @@ def main(argv=None) -> int:
                                  mp_context=multiprocessing.get_context("spawn")) as pool:
             for _ in range(workers):
                 pool.submit(os.getpid)
-            libs = _build.build_all()
-            emit("build", seconds=_build.build_seconds,
+            # the caml phase's library builds with g++ beside nvcc
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(1) as gxx:
+                caml_lib = gxx.submit(caml_ffi.build) if any(args.caml.values()) else None
+                libs = _build.build_all()
+                if caml_lib is not None:
+                    caml_lib.result()
+            emit("build", seconds=_build.build_seconds, with_caml_library=time.perf_counter() - t0,
                  ptxas=[ln.strip() for ln in _build.build_log.splitlines()
                         if "Compiling entry" in ln or "Function properties" in ln or "Used" in ln
                         or ("stack frame" in ln and not ln.strip().startswith("0 bytes"))])
@@ -3510,6 +3910,14 @@ def main(argv=None) -> int:
             if args.pedersen:
                 later["pedersen"] = pedersen_phase(contexts["MNT6753"], args.pedersen, args.seed,
                                                    errs, pool)
+            if any(args.caml.values()):
+                later["caml"] = caml_phase(contexts, args.caml, args.seed, errs, pool)
+            if args.polynomial:
+                later["polynomial"] = polynomial_phase(contexts["MNT4753"], args.polynomial,
+                                                       args.seed, errs, pool)
+            if args.functions:
+                later["functions"] = functions_phase(contexts["MNT4753"], args.functions,
+                                                     args.seed, errs, pool)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3519,7 +3927,8 @@ def main(argv=None) -> int:
     # numbers on each curve's key generation and on its blinded Groth16, GM17,
     # PGHR13, ADSNARK, RAM and TBCS proves; under "towers" the towers check's
     # launches and times (mont_mul alone), under "pcd" each chain step's prove;
-    # under "mp_pcd", "ram_zksnark", "fixnum" and "pedersen" those phases' runs
+    # under "mp_pcd", "ram_zksnark", "fixnum", "pedersen", "caml", "polynomial" and
+    # "functions" those phases' runs
     kernels = {}
     for curve, (launches, report, paths, ctx) in results.items():
         for name, r in report.items():

@@ -19,15 +19,23 @@ their constants, and ``Curve`` checks the declarations against a and 3b.
 A curve that declares none has no such kernel, and its CUDA tensors raise.
 The doubling kernel gives each point a warp: the MSM's Horner step doubles
 4 points or 1, whose time is the latency of one point's chain of products.
+
+Op counts (``utils/op_counts``): both paths record ``<group>.add`` once a
+point, and ``<group>.dbl`` once a point and a doubling.  The plain versions
+record their field operations through ``Fp``; a kernel launch, which makes
+them inside the kernel, records the same figures (``formula_ops``) times
+its points, so a call reports the same on the card and on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
 
+from ..utils import op_counts
 from .cuda_field import check_words, launch_lanes, launches
 
 
@@ -121,10 +129,40 @@ def _mul_b3(curve, F, xs):
     return [torch.stack(prods[k * d:(k + 1) * d]) for k in range(len(xs))]
 
 
+def _points(curve, *pts) -> int:
+    """Points in the broadcast batch of the point triples ``pts``."""
+    k = curve.F.elem_ndim
+    return math.prod(torch.broadcast_shapes(*(t.shape for P in pts for t in P))[k:])
+
+
+def formula_ops(curve, op: str) -> dict:
+    """The field operations a point that the plain version of ``op`` ("add",
+    or "dbl" for one doubling) records, {key: count}: counted once a curve by
+    running it on one point."""
+    cache = curve.__dict__.setdefault("_formula_ops", {})
+    if op not in cache:
+        P = curve.zero((1,))
+        with op_counts.counting() as c:
+            ec_add_plain(curve, P, P) if op == "add" else ec_dbl_plain(curve, P)
+        cache[op] = {k: v for k, v in c.counts.items() if k != f"{curve.name}.{op}"}
+    return cache[op]
+
+
+def _count_kernel(curve, op: str, n: int):
+    """What a kernel launch of ``op`` on n points (n doublings of points for
+    k doublings a launch) records: the group operation and its field
+    operations, those of the plain version."""
+    op_counts.record(f"{curve.name}.{op}", n)
+    for key, v in formula_ops(curve, op).items():
+        op_counts.record(key, v * n)
+
+
 def ec_add_plain(curve, P, Q):
     """Plain PyTorch complete addition on any device, on the kernel's
     schedule: a and 3b multiply as the monomials of the curve's addition
     kernel, by small-integer scaling and one base product a component."""
+    if op_counts.active() is not None:
+        op_counts.record(f"{curve.name}.add", _points(curve, P, Q))
     F = curve.F.plain()
     X1, Y1, Z1 = P
     X2, Y2, Z2 = Q
@@ -152,6 +190,8 @@ def ec_dbl_plain(curve, P, times: int = 1):
     as the monomial of the curve's doubling kernel (small-integer scaling)."""
     F = curve.F.plain()
     for _ in range(times):
+        if op_counts.active() is not None:
+            op_counts.record(f"{curve.name}.dbl", _points(curve, P))
         X1, Y1, Z1 = P
         XX, ZZ, Y1Z1 = _mulsb(F, [X1, Z1, Y1], [X1, Z1, Z1])
         s = F.double(Y1Z1)
@@ -225,6 +265,8 @@ def ec_add(curve, P, Q):
     """P + Q.  CUDA tensors: the kernel, or an exception."""
     if _device_type(curve, P) == "cpu":
         return ec_add_plain(curve, P, Q)
+    if op_counts.active() is not None:
+        _count_kernel(curve, "add", _points(curve, P, Q))
     return _launch(curve, f"ec_add_{curve.kernel_field}", "ec_add",
                    f"{add_kernel(curve).launcher}_launch", (*P, *Q),
                    [curve.kconst.data_ptr()], [ctypes.c_void_p])
@@ -236,6 +278,8 @@ def ec_dbl(curve, P, times: int = 1):
         raise ValueError(f"{curve.name}: times must be at least 1, got {times}")
     if _device_type(curve, P) == "cpu":
         return ec_dbl_plain(curve, P, times)
+    if op_counts.active() is not None:
+        _count_kernel(curve, "dbl", _points(curve, P) * times)
     return _launch(curve, f"ec_dbl_{curve.kernel_field}", "ec_dbl",
                    f"{dbl_kernel(curve).launcher}_launch", tuple(P), [times], [ctypes.c_int],
                    k=times)

@@ -10,11 +10,13 @@ tensor and uses the plain version only for a CPU tensor.
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
 
 from ..models.primes import PrimeSpec
+from ..utils import op_counts
 from ..utils.bigint import int_to_words, ints_to_words
 from . import limbs as lb
 from .cuda_field import mont_mul, mont_mul_plain
@@ -90,12 +92,22 @@ class Fp:
         shape = (lb.N_WORDS,) + tuple(batch_shape)
         return lb.bcast_const(self.mont_one, self.zeros(batch_shape)).expand(shape).contiguous()
 
+    # ---- op counting (PROFILE_OP_COUNTS, fp.hpp:46-52) ----------------------
+    def _count(self, key: str, *xs):
+        """Record ``key`` once an element of the operands' broadcast batch."""
+        shape = torch.broadcast_shapes(*(x.shape for x in xs))
+        op_counts.record(f"{self.name}.{key}", math.prod(shape[1:]))
+
     # ---- ring ops -------------------------------------------------------
     def add(self, a, b):
+        if op_counts.active() is not None:
+            self._count("add", a, b)
         s, _ = lb.add_carry(lb.widen(a), lb.widen(b))  # < 2p < 2^754: no carry out
         return lb.narrow(lb.cond_sub(s, self.p_wide))
 
     def sub(self, a, b):
+        if op_counts.active() is not None:
+            self._count("sub", a, b)
         d, lt = lb.sub_borrow(lb.widen(a), lb.widen(b))
         dp, _ = lb.add_carry(d, lb.bcast_const(self.p_wide, d))  # wraps back into [0, p)
         return lb.narrow(torch.where(lt.unsqueeze(0), dp, d))
@@ -109,13 +121,19 @@ class Fp:
         return self.add(a, a)
 
     def mul(self, a, b):
+        if op_counts.active() is not None:
+            self._count("mul", a, b)
         return self._mont_mul(self, a, b)
 
     def sqr(self, a):
+        if op_counts.active() is not None:
+            self._count("sqr", a)
         return self._mont_mul(self, a, a)
 
     def mul_const(self, a, c):
-        """a * c for a (24,) Montgomery-form constant c."""
+        """a * c for a (24,) Montgomery-form constant c (counted as a mul)."""
+        if op_counts.active() is not None:
+            self._count("mul", a)
         return self._mont_mul(self, a, lb.bcast_const(c, a))
 
     def mul_small(self, a, k: int):
@@ -157,7 +175,10 @@ class Fp:
         return out
 
     def inv(self, a):
-        """a^-1 by Fermat, a^(p - 2), elementwise; 0 maps to 0."""
+        """a^-1 by Fermat, a^(p - 2), elementwise; 0 maps to 0 (counted as
+        an inv and the exponentiation's products)."""
+        if op_counts.active() is not None:
+            self._count("inv", a)
         return self.pow_int(a, self.p - 2)
 
     def batch_inv(self, a):

@@ -4,7 +4,8 @@ A point batch is a triple (X, Y, Z) of coordinate-field tensors
 (``ops.field.Fp`` for G1, ``ops.towers.Fp2`` or ``Fp3`` for G2).  The identity is
 (0, 1, 0).  ``add`` and ``double`` go through ``ops.cuda_group``: one fused
 CUDA kernel launch for CUDA tensors (``double(P, times)`` makes all its
-doublings in one), the plain version for CPU tensors.
+doublings in one), the plain version for CPU tensors; both record the group
+operation and its field operations in an active ``utils/op_counts`` scope.
 """
 
 from __future__ import annotations

@@ -43,7 +43,8 @@ def test_every_module_is_listed():
                  "gadgets.pairing_gadgets", "gadgets.verifier_gadget", "gadgets.knapsack",
                  "proof_systems.pcd", "proof_systems.mp_pcd", "proof_systems.ram_zksnark",
                  "gadgets.sha256_gadget", "gadgets.merkle_tree", "gadgets.gadgetlib2",
-                 "cli_fixnum", "pedersen"):
+                 "cli_fixnum", "pedersen", "utils.op_counts", "ops.polynomial", "ops.functions",
+                 "io.caml_serialization", "io.caml_ffi"):
         assert f"{port.__name__}.{name}" in MODULES
 
 
